@@ -5,7 +5,7 @@
 
 PY ?= python
 CXX ?= g++
-NATIVE_DIR := dsabeamformer_tpu/ingest/native
+NATIVE_DIR := dsabeamformer/ingest/native
 
 .PHONY: test native selftest bench clean
 
@@ -18,7 +18,7 @@ $(NATIVE_DIR)/libdsaring.so: $(NATIVE_DIR)/ring_buffer.cpp
 	$(CXX) -O2 -std=c++17 -shared -fPIC $< -o $@ -lrt -pthread
 
 selftest:
-	$(PY) -m dsabeamformer_tpu.cli selftest
+	$(PY) -m dsabeamformer.cli selftest
 
 bench:
 	$(PY) bench.py

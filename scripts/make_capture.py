@@ -14,9 +14,9 @@ import argparse
 import json
 import time
 
-from dsabeamformer_tpu.config import presets
-from dsabeamformer_tpu.ingest import dada
-from dsabeamformer_tpu.ingest.generator import make_random_bytes_block
+from dsabeamformer.config import presets
+from dsabeamformer.ingest import dada
+from dsabeamformer.ingest.generator import make_random_bytes_block
 
 
 def main() -> int:

@@ -5,8 +5,9 @@ Exercises the REAL multi-host runtime path (parallel/multihost.py):
 -> ``jax.make_array_from_process_local_data`` assembly of the global
 channel-sharded arrays -> the global ``sharded_beamformer`` step ->
 per-host golden check of the addressable output shards.  This is the
-TPU-pod deployment shape (each host DMAs only its own subband; DCN
-carries no voltage data) executed on n processes x m CPU devices.
+multi-host deployment shape (each host copies only its own subband; the
+network carries no voltage data) executed on n processes x m CPU
+devices.
 
 argv: coordinator n_proc pid devices_per_proc preset(tiny|dsa110s) [mode]
 
@@ -21,7 +22,7 @@ import sys
 
 
 def _preset(name: str):
-    from dsabeamformer_tpu.config import DSA110, TINY
+    from dsabeamformer.config import DSA110, TINY
 
     if name == "tiny":
         return TINY
@@ -30,8 +31,7 @@ def _preset(name: str):
         # band frame) at test scale: 16 channels over the 8-slot global
         # mesh (4 hosts x 2 devices), reduced beams/time for speed.
         return DSA110.replace(
-            n_chan=16, n_chan_total=2048, t_block=64, time_tile=32,
-            chan_tile=2, n_beams=64,
+            n_chan=16, n_chan_total=2048, t_block=64, n_beams=64,
         )
     raise SystemExit(f"unknown preset {name!r}")
 
@@ -43,21 +43,21 @@ def run_stream(cfg, pid: int) -> int:
     import jax
     import numpy as np
 
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.models.calibration import CalTable
-    from dsabeamformer_tpu.models.weights import (
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.models.calibration import CalTable
+    from dsabeamformer.models.weights import (
         make_weights,
         weights_numpy_golden,
     )
-    from dsabeamformer_tpu.ops.quantize import quantize_weights
-    from dsabeamformer_tpu.ops.reference import beamform_block_ref
-    from dsabeamformer_tpu.parallel.multihost import (
+    from dsabeamformer.ops.quantize import quantize_weights
+    from dsabeamformer.ops.reference import beamform_block_ref
+    from dsabeamformer.parallel.multihost import (
         MultihostMeshStreamingBeamformer,
         my_subband,
     )
-    from dsabeamformer_tpu.parallel.sharding import make_mesh
-    from dsabeamformer_tpu.pipeline import CollectSink, SyntheticSource
-    from dsabeamformer_tpu.utils.testing import relative_power_error
+    from dsabeamformer.parallel.sharding import make_mesh
+    from dsabeamformer.pipeline import CollectSink, SyntheticSource
+    from dsabeamformer.utils.testing import relative_power_error
 
     mesh = make_mesh(len(jax.devices()))
     sub = my_subband(cfg)
@@ -119,7 +119,7 @@ def main() -> int:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_num_cpu_devices", n_dev)
 
-    from dsabeamformer_tpu.parallel.multihost import (
+    from dsabeamformer.parallel.multihost import (
         initialize_multihost,
         my_subband,
     )
@@ -133,20 +133,20 @@ def main() -> int:
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.models.weights import (
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.models.weights import (
         make_weights,
         weights_numpy_golden,
     )
-    from dsabeamformer_tpu.ops.quantize import QuantWeights, quantize_weights
-    from dsabeamformer_tpu.ops.reference import beamform_block_ref
-    from dsabeamformer_tpu.parallel.sharding import (
+    from dsabeamformer.ops.quantize import QuantWeights, quantize_weights
+    from dsabeamformer.ops.reference import beamform_block_ref
+    from dsabeamformer.parallel.sharding import (
         AXIS,
         make_mesh,
         sharded_beamformer,
         sharded_wire_sharding,
     )
-    from dsabeamformer_tpu.utils.testing import relative_power_error
+    from dsabeamformer.utils.testing import relative_power_error
 
     cfg = _preset(preset)
     mesh = make_mesh(len(jax.devices()))

@@ -3,7 +3,7 @@ validation the reference did by visual plots, made quantitative)."""
 
 import numpy as np
 
-from dsabeamformer_tpu.models.beampattern import beam_fwhm_rad, beam_response
+from dsabeamformer.models.beampattern import beam_fwhm_rad, beam_response
 
 
 def test_matched_beams_on_diagonal(tiny_cfg):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.config import DSA10, DSA110, TINY, ObsConfig, presets
+from dsabeamformer.config import DSA10, DSA110, TINY, ObsConfig, presets
 
 
 def test_presets_valid():
@@ -27,9 +27,9 @@ def test_dsa110_geometry():
 
 
 @pytest.mark.parametrize("field,value,msg", [
-    ("t_block", 100, "multiple of time_tile"),
+    ("t_block", 100, "multiple of navg_time"),
     ("navg_freq", 3, "multiple of navg_freq"),
-    ("chan_tile", 3, "multiple of chan_tile"),
+    ("n_ant_compute", 12, "multiple of 8"),
     ("n_ant_active", 1000, "n_ant_active"),
     ("weight_mode", "fp4", "weight_mode"),
     ("input_layout", "fpta", "input_layout"),
@@ -39,9 +39,9 @@ def test_invalid_configs_rejected(field, value, msg):
         TINY.replace(**{field: value})
 
 
-def test_time_tile_navg_divisibility():
+def test_t_block_navg_divisibility():
     with pytest.raises(ValueError, match="multiple of navg_time"):
-        TINY.replace(time_tile=24, t_block=48)
+        TINY.replace(t_block=24)
 
 
 def test_beam_angles_uniform_in_sin():
@@ -58,15 +58,15 @@ def test_subband_slicing():
 def test_config_hashable_for_jit():
     d = {DSA10: 1, TINY: 2}
     assert d[DSA10] == 1
-    assert DSA10.replace(t_block=1024, time_tile=1024) != DSA10
+    assert DSA10.replace(t_block=1024) != DSA10
 
 
 def test_wire_dtype_rejected(tiny_cfg):
     import jax.numpy as jnp
 
-    from dsabeamformer_tpu.models.weights import make_weights
-    from dsabeamformer_tpu.ops.gemm import beamform_power
-    from dsabeamformer_tpu.ops.quantize import quantize_weights
+    from dsabeamformer.models.weights import make_weights
+    from dsabeamformer.ops.gemm import beamform_power
+    from dsabeamformer.ops.quantize import quantize_weights
 
     qw = quantize_weights(make_weights(tiny_cfg), tiny_cfg.weight_mode)
     bad = jnp.zeros(tiny_cfg.wire_block_shape, jnp.int8)
@@ -75,16 +75,15 @@ def test_wire_dtype_rejected(tiny_cfg):
 
 
 def test_mismatched_cal_rejected(tiny_cfg):
-    from dsabeamformer_tpu.models.calibration import CalTable
-    from dsabeamformer_tpu.models.weights import make_weights
+    from dsabeamformer.models.calibration import CalTable
+    from dsabeamformer.models.weights import make_weights
 
-    bad_cal = CalTable.unity(tiny_cfg.replace(n_chan=4, n_chan_total=4,
-                                              chan_tile=2))
+    bad_cal = CalTable.unity(tiny_cfg.replace(n_chan=4, n_chan_total=4))
     with pytest.raises(ValueError, match="calibration"):
         make_weights(tiny_cfg, cal=bad_cal)
 
 def test_dsa10_compact_preset():
-    from dsabeamformer_tpu.config import DSA10, DSA10_COMPACT, presets
+    from dsabeamformer.config import DSA10, DSA10_COMPACT, presets
 
     c = DSA10_COMPACT
     assert presets()["dsa10c"] is c
@@ -94,51 +93,4 @@ def test_dsa10_compact_preset():
     assert c.wire_block_bytes * 4 == DSA10.wire_block_bytes
     assert c.block_duration_s == DSA10.block_duration_s
     assert c.a_compute == 16
-    # Grouped time-major slicing stays aligned: chan_tile*P*A % 128 == 0.
-    assert (c.chan_tile * c.n_pol * c.n_ant) % 128 == 0
 
-
-class TestShrinkTiles:
-    """The shared VMEM tile-shrink rule (config.shrink_tiles) used by
-    the Stokes CLI path, beamform_voltages, and the fused-incoherent
-    variant — one loop, one rule (round-3 consolidation)."""
-
-    def test_noop_when_under_budget(self, tiny_cfg):
-        from dsabeamformer_tpu.config import shrink_tiles
-
-        out = shrink_tiles(tiny_cfg, lambda fc, tt: fc * tt, 10**9)
-        assert out is tiny_cfg  # same object: no pointless replace
-
-    def test_halves_time_tile_first(self, tiny_cfg):
-        from dsabeamformer_tpu.config import shrink_tiles
-
-        # TINY: time_tile=32, navg_time=16 -> one halving allowed (to
-        # 16); the next would break the navg_time multiple, so chan_tile
-        # (2 -> 1) takes over.
-        out = shrink_tiles(tiny_cfg, lambda fc, tt: fc * tt, 16)
-        assert out.time_tile == 16 and out.chan_tile == 1
-
-    def test_respects_min_time_tile(self, tiny_cfg):
-        from dsabeamformer_tpu.config import shrink_tiles
-
-        out = shrink_tiles(tiny_cfg, lambda fc, tt: tt, 16,
-                           min_time_tile=32)
-        # time_tile pinned at its floor; tt-only metric ignores fc, so
-        # halving fc can't help; loop must stop (no infinite loop).
-        assert out.time_tile == 32
-
-    def test_allow_chan_false_never_touches_chan_tile(self, tiny_cfg):
-        from dsabeamformer_tpu.config import shrink_tiles
-
-        out = shrink_tiles(tiny_cfg, lambda fc, tt: fc * 1000, 1,
-                           allow_chan=False)
-        assert out.chan_tile == tiny_cfg.chan_tile
-        # time_tile halved to its navg_time floor trying to fit.
-        assert out.time_tile == 16
-
-    def test_stops_when_nothing_divides(self, tiny_cfg):
-        from dsabeamformer_tpu.config import shrink_tiles
-
-        cfg = tiny_cfg.replace(time_tile=16, chan_tile=1)
-        out = shrink_tiles(cfg, lambda fc, tt: fc * tt, 1)
-        assert out is cfg  # fully blocked: returned unchanged

@@ -7,8 +7,8 @@ import dataclasses
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.config import DM_CONST_S, dm_delays_s
-from dsabeamformer_tpu.ops.dedisperse import (
+from dsabeamformer.config import DM_CONST_S, dm_delays_s
+from dsabeamformer.ops.dedisperse import (
     Candidate,
     dedisperse_bank,
     delay_table,
@@ -160,7 +160,7 @@ def test_subband_plan_error_bound():
     max_err_samples of its assigned coarse representative — the bound
     the two-stage bank's accuracy claim rests on — and the coarse set
     is substantially smaller than the trial set."""
-    from dsabeamformer_tpu.ops.dedisperse import subband_plan
+    from dsabeamformer.ops.dedisperse import subband_plan
 
     freqs = _freqs(96)  # not divisible by n_sub=10 -> exercises pad
     dms = dm_trial_grid(F_LO, F_HI, TSAMP, dm_max=400.0, tol=1.25)
@@ -185,7 +185,7 @@ def test_subband_plan_error_bound():
 def test_subband_bank_exact_at_zero_budget():
     """With max_err_samples=0 the two-stage bank must equal the
     brute-force bank to float tolerance (same sums, same shifts)."""
-    from dsabeamformer_tpu.ops.dedisperse import subband_dedisperse_bank
+    from dsabeamformer.ops.dedisperse import subband_dedisperse_bank
 
     rng = np.random.default_rng(2)
     x = rng.normal(size=(512, 32)).astype(np.float32)
@@ -222,11 +222,11 @@ def test_subband_search_recovers_pulse_comparably():
 
 
 def test_conv_bank_matches_subband_bank():
-    """The MXU-conv bank computes the SAME two-stage plan as the
+    """The conv bank computes the SAME two-stage plan as the
     gather subband bank — identical sums, so identical output to
     float tolerance at every n_sub (the only difference is the
     primitive: one-hot grouped conv + dynamic slices vs gathers)."""
-    from dsabeamformer_tpu.ops.dedisperse import (
+    from dsabeamformer.ops.dedisperse import (
         conv_dedisperse_bank, subband_dedisperse_bank)
 
     rng = np.random.default_rng(3)
@@ -244,7 +244,7 @@ def test_conv_bank_matches_subband_bank():
 def test_conv_bank_exact_at_zero_budget():
     """max_err_samples=0 collapses the plan to one coarse trial per
     trial — the conv bank must then equal the brute-force bank."""
-    from dsabeamformer_tpu.ops.dedisperse import conv_dedisperse_bank
+    from dsabeamformer.ops.dedisperse import conv_dedisperse_bank
 
     rng = np.random.default_rng(2)
     x = rng.normal(size=(512, 32)).astype(np.float32)
@@ -261,7 +261,7 @@ def test_conv_bank_batch_and_plan_cache():
     """The batched conv bank matches per-beam calls, and the one-hot
     kernel is built once per delay table (the streaming monitor calls
     every window)."""
-    from dsabeamformer_tpu.ops import dedisperse as dd
+    from dsabeamformer.ops import dedisperse as dd
 
     rng = np.random.default_rng(5)
     xb = rng.normal(size=(3, 512, 32)).astype(np.float32)
@@ -284,8 +284,8 @@ def test_conv_auto_n_sub_bounds_kernel_span():
     3.9 GB kernel at DSA-10 scale — a worker-killing dispatch), and
     the conv bank still honors the max_err_samples contract at the
     auto pick."""
-    from dsabeamformer_tpu.config import DSA10
-    from dsabeamformer_tpu.ops.dedisperse import (
+    from dsabeamformer.config import DSA10
+    from dsabeamformer.ops.dedisperse import (
         _conv_auto_n_sub, conv_dedisperse_bank, subband_dedisperse_bank)
 
     cfg = DSA10
@@ -312,7 +312,7 @@ def test_conv_auto_n_sub_bounds_kernel_span():
     dms = dm_trial_grid(F_LO, F_HI, TSAMP, dm_max=200.0, tol=1.25)
     delays = delay_table(_freqs(64), dms, TSAMP)
     b_auto, v_auto = conv_dedisperse_bank(x, delays)
-    from dsabeamformer_tpu.ops.dedisperse import _conv_auto_n_sub as auto
+    from dsabeamformer.ops.dedisperse import _conv_auto_n_sub as auto
     b_ref, v_ref = subband_dedisperse_bank(x, delays, n_sub=auto(delays))
     assert np.array_equal(v_auto, v_ref)
     assert np.allclose(np.asarray(b_auto), np.asarray(b_ref),
@@ -320,12 +320,12 @@ def test_conv_auto_n_sub_bounds_kernel_span():
 
 
 def test_conv_bank_uint8_bf16_path_bit_exact():
-    """uint8 products take the single-pass bf16 MXU conv; it must be
+    """uint8 products take the bf16 convolution; it must be
     BIT-identical to the f32 HIGHEST path in the guaranteed-data
     region (integers <= 255 are exact in bf16, the kernel is one-hot,
     accumulation is f32) — the fused-quant8 live monitor's fast path
     is not an approximation."""
-    from dsabeamformer_tpu.ops.dedisperse import conv_dedisperse_bank
+    from dsabeamformer.ops.dedisperse import conv_dedisperse_bank
 
     rng = np.random.default_rng(7)
     x8 = rng.integers(0, 256, size=(1024, 64), dtype=np.uint8)
@@ -348,7 +348,7 @@ def test_conv_bank_prep_device_split_matches_wrapper():
     decomposition times a different program than production runs."""
     import jax
 
-    from dsabeamformer_tpu.ops import dedisperse as dd
+    from dsabeamformer.ops import dedisperse as dd
 
     rng = np.random.default_rng(7)
     t_out = 256
@@ -391,7 +391,7 @@ def test_conv_search_recovers_pulse_comparably():
 
 def test_search_method_validation():
     """Unknown bank methods fail loudly everywhere they can be set."""
-    from dsabeamformer_tpu.ops.dedisperse import SearchMonitor
+    from dsabeamformer.ops.dedisperse import SearchMonitor
 
     dms = dm_trial_grid(F_LO, F_HI, TSAMP, dm_max=100.0, tol=1.25)
     with pytest.raises(ValueError, match="conv|direct|subband"):
@@ -440,7 +440,7 @@ def test_zap_kills_bursty_channel_keeps_pulse():
 
 
 def test_preprocess_validation():
-    from dsabeamformer_tpu.ops.dedisperse import preprocess_spectrogram
+    from dsabeamformer.ops.dedisperse import preprocess_spectrogram
 
     x = np.ones((16, 4), np.float32)
     with pytest.raises(ValueError, match="outside"):
@@ -456,7 +456,7 @@ def test_preprocess_validation():
 def _write_fil(path, x_ascending, tsamp, ibeam=0):
     """Minimal nbits=32 SIGPROC file via the package's own header
     encoder, stored in the standard descending-channel order."""
-    from dsabeamformer_tpu.ingest.sigproc import _encode_header_dict
+    from dsabeamformer.ingest.sigproc import _encode_header_dict
 
     t, nf = x_ascending.shape
     hdr = {"fch1": F_HI, "foff": -(F_HI - F_LO) / (nf - 1),
@@ -471,7 +471,7 @@ def _write_fil(path, x_ascending, tsamp, ibeam=0):
 def test_cli_search_fil_end_to_end(tmp_path, capsys):
     """dsabf search on a .fil with an injected dispersed pulse: table
     printed, candidate file written, DM recovered."""
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     dm_true = 90.0
     x, _ = _pulse_spectrogram(2048, 64, dm_true, 700, 4, amp=1.0, seed=11)
@@ -497,7 +497,7 @@ def test_batched_search_matches_per_beam():
     """search_spectrograms (vmapped beam-batched device path) returns
     exactly search_spectrogram's candidates per beam, for both bank
     methods, across chunk boundaries and partial beam groups."""
-    from dsabeamformer_tpu.ops.dedisperse import (
+    from dsabeamformer.ops.dedisperse import (
         search_spectrogram, search_spectrograms)
 
     freqs = _freqs(64)
@@ -522,7 +522,7 @@ def test_batched_search_matches_per_beam():
 
 
 def test_batched_search_validation():
-    from dsabeamformer_tpu.ops.dedisperse import search_spectrograms
+    from dsabeamformer.ops.dedisperse import search_spectrograms
 
     freqs = _freqs(16)
     dms = dm_trial_grid(F_LO, F_HI, TSAMP, dm_max=50.0)
@@ -537,7 +537,7 @@ def test_batched_search_validation():
 
 def test_coincidence_filter_unit():
     """A cluster hitting most beams is RFI; a two-beam pulse is kept."""
-    from dsabeamformer_tpu.ops.dedisperse import coincidence_filter
+    from dsabeamformer.ops.dedisperse import coincidence_filter
 
     dms = dm_trial_grid(F_LO, F_HI, TSAMP, dm_max=300.0, tol=1.25)
     delays = delay_table(_freqs(64), dms, TSAMP)
@@ -571,7 +571,7 @@ def test_cli_search_multibeam_fil_coincidence(tmp_path, capsys):
     """Eight per-beam .fil files: an undispersed spike in every beam
     is coincidence-rejected; a dispersed pulse in two beams survives
     with its beam recorded."""
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     dm_true, t0 = 90.0, 700
     paths = []
@@ -610,8 +610,8 @@ def test_cli_search_dada_all_beams(tiny_cfg, tmp_path, capsys):
     """--beam all on a DADA product searches every beam from one file
     read; the drill pulse's strongest candidate sits in the pointed
     beam."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.config import DM_CONST_S
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.config import DM_CONST_S
 
     cfg = tiny_cfg.replace(navg_time=2)
     f = cfg.freqs_hz() / 1e6
@@ -651,7 +651,7 @@ def test_cli_search_dada_all_beams(tiny_cfg, tmp_path, capsys):
 def test_cli_search_rejects_absurd_dm_grid(tmp_path, capsys):
     """A fast-cadence product searched to a huge --dm-max fails with
     the knobs named, instead of allocating a multi-GB delay table."""
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     x = np.random.default_rng(0).normal(size=(64, 16)).astype(np.float32)
     p = tmp_path / "fast.fil"
@@ -665,7 +665,7 @@ def test_cli_search_rejects_absurd_dm_grid(tmp_path, capsys):
 def test_cli_search_rejects_headerless_product(tmp_path, capsys):
     """A product whose header can't give the band/cadence fails with a
     clean message, not a traceback."""
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     p = tmp_path / "x.fil"
     p.write_bytes(b"garbage")
@@ -691,7 +691,7 @@ def _feed_monitor(mon, x, t_out, beam=1, n_beams=4, seq0=0, skip=None):
 def test_search_monitor_matches_offline():
     """Streaming windows (block-fed, overlap carried) find the same
     event the offline chunk loop finds on the identical spectrogram."""
-    from dsabeamformer_tpu.ops.dedisperse import SearchMonitor
+    from dsabeamformer.ops.dedisperse import SearchMonitor
 
     dm_true, t0 = 90.0, 700
     x, freqs = _pulse_spectrogram(2048, 64, dm_true, t0, 4, amp=1.0, seed=21)
@@ -721,7 +721,7 @@ def test_search_monitor_matches_offline():
 def test_search_monitor_gap_resets():
     """A dropped block (sequence gap) flushes and restarts the sweep
     buffer instead of stitching discontinuous data."""
-    from dsabeamformer_tpu.ops.dedisperse import SearchMonitor
+    from dsabeamformer.ops.dedisperse import SearchMonitor
 
     x, freqs = _pulse_spectrogram(1024, 64, 90.0, 200, 4, amp=1.0, seed=4)
     dms = dm_trial_grid(F_LO, F_HI, TSAMP, dm_max=300.0, tol=1.25)
@@ -735,7 +735,7 @@ def test_search_monitor_gap_resets():
 
 
 def test_search_monitor_incoherent_and_stokes_extraction():
-    from dsabeamformer_tpu.ops.dedisperse import SearchMonitor
+    from dsabeamformer.ops.dedisperse import SearchMonitor
 
     x, freqs = _pulse_spectrogram(512, 32, 60.0, 100, 4, amp=1.5, seed=8)
     dms = dm_trial_grid(F_LO, F_HI, TSAMP, dm_max=150.0, tol=1.25)
@@ -771,7 +771,7 @@ def test_search_monitor_multibeam_coincidence():
     fires in all beams is rejected per window, the localized pulse
     survives with its beam label; a beam-set target and coincidence=False
     behave as documented."""
-    from dsabeamformer_tpu.ops.dedisperse import SearchMonitor
+    from dsabeamformer.ops.dedisperse import SearchMonitor
 
     dm_true, t0 = 90.0, 700
     n_beams, t_out, T = 8, 128, 2048
@@ -836,8 +836,8 @@ def test_search_monitor_multibeam_coincidence():
 def test_cli_run_live_search(tiny_cfg, tmp_path, capsys):
     """dsabf run --search-dm-max: the injected-FRB drill fires the
     live trigger and writes a candidate file at exit."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.config import DM_CONST_S
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.config import DM_CONST_S
 
     cfg = tiny_cfg.replace(navg_time=2)
     f = cfg.freqs_hz() / 1e6
@@ -907,7 +907,7 @@ def test_write_candidates_roundtrip(tmp_path):
     assert int(row[1]) == 700
     assert float(row[5]) == pytest.approx(90.2)
     # and back: read_candidates restores meta types and every field
-    from dsabeamformer_tpu.ops.dedisperse import read_candidates
+    from dsabeamformer.ops.dedisperse import read_candidates
 
     meta, back = read_candidates(p)
     assert meta["threshold"] == 7.0 and meta["file"] == "x.fil"
@@ -927,7 +927,7 @@ def test_write_candidates_roundtrip(tmp_path):
 def test_cli_waterfall_cand_vetting(tmp_path, capsys):
     """`dsabf waterfall --cand f --idx 0` inherits the row's DM and
     windows the frame on the detection."""
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     dm_true, t0 = 90.0, 1500
     x, _ = _pulse_spectrogram(4096, 64, dm_true, t0, 4, amp=1.2, seed=3)
@@ -956,7 +956,7 @@ def test_cli_waterfall_cand_vetting(tmp_path, capsys):
 def test_cli_search_rejects_bad_coincidence_frac(tmp_path, capsys):
     """An out-of-range --coincidence-frac fails BEFORE the search runs
     (a bad value after minutes of dedispersion would be a traceback)."""
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     p = tmp_path / "b.fil"
     _write_fil(p, np.zeros((64, 8), np.float32), TSAMP)
@@ -973,8 +973,8 @@ def test_cli_search_live_ring(tiny_cfg, tmp_path, capsys):
     buffer topology."""
     import os as _os
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.ring import RingBuffer
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.ring import RingBuffer
 
     cfg = tiny_cfg.replace(navg_time=2)
     f = cfg.freqs_hz() / 1e6
@@ -1034,8 +1034,8 @@ def test_cli_search_live_ring_join(tiny_cfg, tmp_path, capsys):
     band."""
     import os as _os
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.ring import RingBuffer
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.ring import RingBuffer
 
     cfg = tiny_cfg.replace(navg_time=2)
     f = cfg.freqs_hz() / 1e6
@@ -1101,8 +1101,8 @@ def test_cli_search_join_one_ring_eods_early(tiny_cfg, tmp_path, capsys):
     search the common prefix, flush, and exit cleanly."""
     import os as _os
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.ring import RingBuffer
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.ring import RingBuffer
 
     cfg = tiny_cfg.replace(navg_time=2)
     keys = []
@@ -1140,9 +1140,9 @@ def test_cli_search_join_mismatched_headers(tiny_cfg, tmp_path, capsys):
     and rings with mixed payloads are rejected with a clear error."""
     import os as _os
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.ring import RingBuffer
-    from dsabeamformer_tpu.pipeline import RingSink
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.ring import RingBuffer
+    from dsabeamformer.pipeline import RingSink
 
     cfg = tiny_cfg.replace(navg_time=2)
     f_out, t_out, b_out = cfg.out_block_shape
@@ -1168,7 +1168,7 @@ def test_cli_search_join_mismatched_headers(tiny_cfg, tmp_path, capsys):
                 "power" if products == "power" else "power"))
             if products == "incoherent":
                 # Rewrite the header as the incoherent product.
-                from dsabeamformer_tpu.ingest import dada
+                from dsabeamformer.ingest import dada
 
                 ring.write_header(dada.encode_header(
                     sub, PAYLOAD="INCOHERENT_POWER", OUT_DTYPE="float32",
@@ -1205,9 +1205,9 @@ def test_cli_search_join_skew_candidate_straddles(tiny_cfg, tmp_path,
     post-join candidate)."""
     import os as _os
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.ring import RingBuffer
-    from dsabeamformer_tpu.pipeline import RingSink
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.ring import RingBuffer
+    from dsabeamformer.pipeline import RingSink
 
     cfg = tiny_cfg.replace(navg_time=2)
     width = cfg.n_chan // 2
@@ -1280,14 +1280,14 @@ def test_search_review_fixes(tmp_path, capsys):
 
     import dataclasses as _dc
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.ring import RingBuffer
-    from dsabeamformer_tpu.ops.dedisperse import SearchMonitor
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.ring import RingBuffer
+    from dsabeamformer.ops.dedisperse import SearchMonitor
 
     # (a) incoherent product + --beam 7
-    from dsabeamformer_tpu.utils.quicklook import load_dynamic_spectra
-    from dsabeamformer_tpu.ingest.dada import encode_header
-    from dsabeamformer_tpu.config import TINY
+    from dsabeamformer.utils.quicklook import load_dynamic_spectra
+    from dsabeamformer.ingest.dada import encode_header
+    from dsabeamformer.config import TINY
 
     cfg = TINY
     inco = tmp_path / "inco.dada"
@@ -1335,7 +1335,7 @@ def test_search_review_fixes(tmp_path, capsys):
 def test_cli_search_stream_matches_whole(tiny_cfg, tmp_path, capsys):
     """--stream (block-fed monitor) finds the same candidates as the
     whole-load search on the same DADA product."""
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     cfg = tiny_cfg.replace(navg_time=2)
     f = cfg.freqs_hz() / 1e6
@@ -1377,8 +1377,8 @@ def test_cli_run_reports_output_ring_drops(tiny_cfg, tmp_path, capsys):
     blocks."""
     import os as _os
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.ring import RingBuffer
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.ring import RingBuffer
 
     cap = tmp_path / "cap.dada"
     assert cli_main(["simulate", "--config", "tiny", "--blocks", "6",
@@ -1401,9 +1401,9 @@ def test_cli_run_reports_output_ring_drops(tiny_cfg, tmp_path, capsys):
 def test_epoch_stamping_flows_to_cand(tiny_cfg, tmp_path, capsys):
     """run --utc-start/--tstart-mjd stamp the DADA product header and
     the epoch rides into the .cand file, anchoring candidate times."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.dada import read_product_file
-    from dsabeamformer_tpu.ops.dedisperse import read_candidates
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.dada import read_product_file
+    from dsabeamformer.ops.dedisperse import read_candidates
 
     cfg = tiny_cfg.replace(navg_time=2)
     f = cfg.freqs_hz() / 1e6
@@ -1439,8 +1439,8 @@ def test_cli_search_live_ring_stokes(tiny_cfg, tmp_path, capsys):
     [F, T, 4, B] blocks) end-to-end."""
     import os as _os
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.ring import RingBuffer
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.ring import RingBuffer
 
     cfg = tiny_cfg.replace(navg_time=2)
     f = cfg.freqs_hz() / 1e6

@@ -6,7 +6,7 @@ fused kernel (and in the standalone incoherent_power)."""
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.models.weights import flag_antennas, make_weights
+from dsabeamformer.models.weights import flag_antennas, make_weights
 
 
 def test_flag_antennas_matches_golden(tiny_cfg):
@@ -14,12 +14,12 @@ def test_flag_antennas_matches_golden(tiny_cfg):
     float64 golden weights (the oracle for what excision means)."""
     import jax
 
-    from dsabeamformer_tpu.ingest.generator import make_point_source_block
-    from dsabeamformer_tpu.models.weights import weights_numpy_golden
-    from dsabeamformer_tpu.ops import beamform_power
-    from dsabeamformer_tpu.ops.quantize import prepare_weights
-    from dsabeamformer_tpu.ops.reference import beamform_block_ref
-    from dsabeamformer_tpu.utils.testing import relative_power_error
+    from dsabeamformer.ingest.generator import make_point_source_block
+    from dsabeamformer.models.weights import weights_numpy_golden
+    from dsabeamformer.ops import beamform_power
+    from dsabeamformer.ops.quantize import prepare_weights
+    from dsabeamformer.ops.reference import beamform_block_ref
+    from dsabeamformer.utils.testing import relative_power_error
 
     cfg = tiny_cfg
     flags = [0, cfg.n_ant_active - 1]
@@ -50,8 +50,8 @@ def test_incoherent_flag_ants_standalone(tiny_cfg):
     flagged antennas zeroed, == the full sum minus their contribution."""
     import jax
 
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.ops.incoherent import (
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.ops.incoherent import (
         incoherent_power, incoherent_power_golden,
     )
 
@@ -75,11 +75,11 @@ def test_fused_incoherent_flag_ants(tiny_cfg):
     (compile-time mask in the antenna-reduction matvec)."""
     import jax
 
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.models.weights import make_weights
-    from dsabeamformer_tpu.ops import beamform_power
-    from dsabeamformer_tpu.ops.incoherent import incoherent_power_golden
-    from dsabeamformer_tpu.ops.quantize import prepare_weights
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.models.weights import make_weights
+    from dsabeamformer.ops import beamform_power
+    from dsabeamformer.ops.incoherent import incoherent_power_golden
+    from dsabeamformer.ops.quantize import prepare_weights
 
     cfg = tiny_cfg
     flags = (0, 2)
@@ -97,8 +97,8 @@ def test_fused_incoherent_flag_ants(tiny_cfg):
 def test_tracker_preserves_excision(tiny_cfg):
     """FringeTracker regenerates weights; the edit hook re-applies
     zap/flag excision so --track doesn't un-excise after an update."""
-    from dsabeamformer_tpu.models.tracking import FringeTracker
-    from dsabeamformer_tpu.models.weights import zap_weights
+    from dsabeamformer.models.tracking import FringeTracker
+    from dsabeamformer.models.weights import zap_weights
 
     cfg = tiny_cfg
 
@@ -115,9 +115,9 @@ def test_tracker_preserves_excision(tiny_cfg):
 def test_cli_run_flag_ants(tiny_cfg, tmp_path):
     """End-to-end: --flag-ants drops the antennas from both products;
     output still has signal from the surviving antennas."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.ops.incoherent import incoherent_power_golden
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.ops.incoherent import incoherent_power_golden
 
     cfg = tiny_cfg
     raw = tmp_path / "cap.raw"
@@ -139,8 +139,8 @@ def test_cli_run_flag_ants(tiny_cfg, tmp_path):
 
 
 def test_cli_flag_ants_errors(tiny_cfg, tmp_path):
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
 
     cfg = tiny_cfg
     raw = tmp_path / "cap.raw"
@@ -158,8 +158,8 @@ def test_cli_flag_ants_errors(tiny_cfg, tmp_path):
 
 def test_cmd_weights_flag_ants_persists(tiny_cfg, tmp_path):
     """`dsabf weights --flag-ants` bakes the excision into the table."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ops.quantize import load_quant_weights
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ops.quantize import load_quant_weights
 
     wpath = tmp_path / "w.npz"
     rc = cli_main(["weights", "--config", "tiny", "--out", str(wpath),

@@ -1,24 +1,24 @@
 """Property test: random valid geometries through the fused kernel vs
-the float64 golden model (interpret mode).
+the float64 golden model (the plain form on the CPU backend).
 
 The reference was only ever compiled at one geometry; this framework
 treats geometry as data, so the accuracy contract must hold across the
 config space — antenna counts (with zero padding and auto slicing),
-beam counts, odd channel/tile splits, both wire layouts, every
+beam counts, odd channel splits, both wire layouts, every
 averaging combination.
 """
 
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.config import ObsConfig
-from dsabeamformer_tpu.ingest.generator import make_noise_block
-from dsabeamformer_tpu.models.calibration import CalTable
-from dsabeamformer_tpu.models.weights import make_weights, weights_numpy_golden
-from dsabeamformer_tpu.ops.gemm import beamform_power
-from dsabeamformer_tpu.ops.quantize import quantize_weights
-from dsabeamformer_tpu.ops.reference import beamform_block_ref
-from dsabeamformer_tpu.utils.testing import assert_power_close
+from dsabeamformer.config import ObsConfig
+from dsabeamformer.ingest.generator import make_noise_block
+from dsabeamformer.models.calibration import CalTable
+from dsabeamformer.models.weights import make_weights, weights_numpy_golden
+from dsabeamformer.ops.gemm import beamform_power
+from dsabeamformer.ops.quantize import quantize_weights
+from dsabeamformer.ops.reference import beamform_block_ref
+from dsabeamformer.utils.testing import assert_power_close
 
 MODES = ["int8x2", "int12", "f32", "bf16x2", "int13"]
 RTOL = {"int8x2": 3e-4, "int12": 2e-3, "f32": 1e-5, "bf16x2": 3e-4,
@@ -45,8 +45,6 @@ def _random_cfg(rng: np.random.Generator, i: int) -> ObsConfig:
         t_block=t_block,
         navg_time=navg_time,
         navg_freq=navg_freq,
-        time_tile=time_tile,
-        chan_tile=chan_tile,
         weight_mode=MODES[i % len(MODES)],
         input_layout=str(rng.choice(["tfpa", "ftpa"])),
     )
@@ -72,7 +70,7 @@ def test_random_geometry_matches_golden(i):
                             f"a_c={cfg.a_compute} {cfg.input_layout}")
     # The canonical device-wire form must agree bit-for-bit with the
     # 4-D host form at every geometry (both layouts, every mode).
-    from dsabeamformer_tpu.ops.gemm import device_wire_view
+    from dsabeamformer.ops.gemm import device_wire_view
 
     p_dev = np.asarray(
         beamform_power(device_wire_view(wire, cfg), qw, cfg)
@@ -82,8 +80,8 @@ def test_random_geometry_matches_golden(i):
     # third of the geometries (its I plane must match p bit-for-bit in
     # math, and every plane must match the golden).
     if i % 3 == 0:
-        from dsabeamformer_tpu.ops.gemm import beamform_stokes
-        from dsabeamformer_tpu.ops.reference import beamform_stokes_ref
+        from dsabeamformer.ops.gemm import beamform_stokes
+        from dsabeamformer.ops.reference import beamform_stokes_ref
 
         st = np.asarray(beamform_stokes(wire, qw, cfg))
         np.testing.assert_allclose(st[:, :, 0], p, rtol=1e-6)

@@ -1,22 +1,24 @@
-"""Fused Pallas kernel vs the float64 golden model — the core accuracy
-gates (BASELINE configs 2 & 3): <=1e-3 relative power error, fused
-epilogue vs unfused float path, both wire layouts."""
+"""Detection products vs the float64 golden model — the core accuracy
+gates (BASELINE configs 2 & 3): <=1e-3 relative power error, detection
+vs the unfused voltage path, both wire layouts — plus the choice of
+implementation, the plain form's channel groups, and the kernel's
+lowering for CUDA."""
 
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.ingest.generator import make_noise_block, make_point_source_block
-from dsabeamformer_tpu.models.calibration import CalTable
-from dsabeamformer_tpu.models.weights import make_weights, weights_numpy_golden
-from dsabeamformer_tpu.ops.gemm import (
+from dsabeamformer.ingest.generator import make_noise_block, make_point_source_block
+from dsabeamformer.models.calibration import CalTable
+from dsabeamformer.models.weights import make_weights, weights_numpy_golden
+from dsabeamformer.ops.gemm import (
     beamform_power,
     beamform_voltages,
     voltages_to_complex,
 )
-from dsabeamformer_tpu.ops.packing import unpack_wire_to_complex
-from dsabeamformer_tpu.ops.quantize import quantize_weights
-from dsabeamformer_tpu.ops.reference import beamform_block_ref, beamform_voltages_ref
-from dsabeamformer_tpu.utils.testing import assert_power_close
+from dsabeamformer.ops.packing import unpack_wire_to_complex
+from dsabeamformer.ops.quantize import quantize_weights
+from dsabeamformer.ops.reference import beamform_block_ref, beamform_voltages_ref
+from dsabeamformer.utils.testing import assert_power_close
 
 
 def _golden_power(cfg, wire, cal=None):
@@ -118,7 +120,7 @@ def test_fused_equals_unfused_detection(tiny_cfg):
     qw = quantize_weights(make_weights(tiny_cfg), "int8x2")
     p_fused = np.asarray(beamform_power(wire, qw, tiny_cfg))
     bv = voltages_to_complex(np.asarray(beamform_voltages(wire, qw, tiny_cfg)))
-    from dsabeamformer_tpu.ops.reference import average_ref, detect_ref
+    from dsabeamformer.ops.reference import average_ref, detect_ref
 
     p_unfused = average_ref(detect_ref(bv), tiny_cfg.navg_time, tiny_cfg.navg_freq)
     assert_power_close(p_fused, p_unfused, rtol=1e-5, what="fused vs unfused")
@@ -174,7 +176,7 @@ def test_fused_quant8_with_incoherent(tiny_cfg):
     coherent plane, float32 incoherent plane, one kernel."""
     import jax
 
-    from dsabeamformer_tpu.ops.incoherent import incoherent_power_golden
+    from dsabeamformer.ops.incoherent import incoherent_power_golden
 
     cfg = tiny_cfg
     wire = make_noise_block(cfg, rms=2.0, seed=72)
@@ -215,7 +217,7 @@ def test_fused_sk_stats_matches_standalone(tiny_cfg):
     antennas), composing with incoherent and quant8 outputs."""
     import jax
 
-    from dsabeamformer_tpu.ops.incoherent import sk_block_stats
+    from dsabeamformer.ops.incoherent import sk_block_stats
 
     cfg = tiny_cfg
     wire = make_noise_block(cfg, rms=2.0, seed=81)
@@ -242,8 +244,8 @@ def test_fused_sk_stats_matches_standalone(tiny_cfg):
 
 
 def test_fused_sk_stats_stokes(tiny_cfg):
-    from dsabeamformer_tpu.ops.gemm import beamform_stokes
-    from dsabeamformer_tpu.ops.incoherent import sk_block_stats
+    from dsabeamformer.ops.gemm import beamform_stokes
+    from dsabeamformer.ops.incoherent import sk_block_stats
 
     cfg = tiny_cfg
     wire = make_noise_block(cfg, rms=2.0, seed=82)
@@ -256,3 +258,139 @@ def test_fused_sk_stats_stokes(tiny_cfg):
     st2, inco, sk2 = beamform_stokes(wire, qw, cfg, incoherent=True,
                                      sk_stats=True)
     np.testing.assert_allclose(np.asarray(sk2), np.asarray(sk), rtol=1e-7)
+
+
+# --------------------------------------------------------------------- #
+# Implementation choice, plain-form chunking, kernel lowering
+# --------------------------------------------------------------------- #
+
+from dsabeamformer.ops import gemm  # noqa: E402
+
+
+@pytest.mark.parametrize("mode", gemm.WEIGHT_MODES)
+@pytest.mark.parametrize("product", gemm.PRODUCTS)
+def test_choice_table_on_gpu(monkeypatch, product, mode):
+    """On the gpu backend the table's row runs: the kernel for the int8
+    family, the plain form for the float modes — with or without side
+    outputs."""
+    from dsabeamformer.config import DSA10
+
+    monkeypatch.setattr(gemm.jax, "default_backend", lambda: "gpu")
+    cfg = DSA10.replace(weight_mode=mode)
+    want = "kernel" if mode in gemm.KERNEL_MODES else "plain"
+    for sides in ((), ("incoherent", "quant8", "sk")):
+        assert gemm.IMPL[(product, sides, mode)] == want
+        assert gemm.choose_impl(product, sides, cfg) == want
+
+
+def test_choice_cpu_runs_plain_unless_interpret(tiny_cfg):
+    assert gemm.choose_impl("power", (), tiny_cfg) == "plain"
+    assert gemm.choose_impl("power", (), tiny_cfg, interpret=True) == "kernel"
+    with pytest.raises(ValueError, match="implements"):
+        gemm.choose_impl("power", (), tiny_cfg.replace(weight_mode="bf16"),
+                         interpret=True)
+
+
+@pytest.mark.parametrize("backend", ["rocm", "metal", "neuron"])
+def test_choice_unknown_backend_raises(monkeypatch, tiny_cfg, backend):
+    monkeypatch.setattr(gemm.jax, "default_backend", lambda: backend)
+    with pytest.raises(RuntimeError, match="no beamforming implementation"):
+        gemm.choose_impl("power", (), tiny_cfg)
+
+
+def test_choice_untileable_geometry_runs_plain(monkeypatch):
+    """A geometry the kernel cannot tile (a_compute 112 is not a power
+    of two: dsa110 at int13) runs the plain form on the gpu backend."""
+    from dsabeamformer.config import DSA110
+
+    monkeypatch.setattr(gemm.jax, "default_backend", lambda: "gpu")
+    cfg = DSA110.replace(weight_mode="int13")
+    assert cfg.a_compute == 112 and gemm.kernel_tiles(cfg) is None
+    assert gemm.choose_impl("power", (), cfg) == "plain"
+
+
+@pytest.mark.parametrize("name,product,want", [
+    ("dsa10", "power", (128, 64)), ("dsa10", "stokes", (64, 32)),
+    ("dsa10c", "power", (128, 64)), ("dsa110", "power", (128, 64)),
+    ("dsa110", "stokes", (64, 32)),
+])
+def test_kernel_tiles_presets(name, product, want):
+    from dsabeamformer.config import presets
+
+    assert gemm.kernel_tiles(presets()[name], product) == want
+
+
+def test_kernel_tiles_small_shapes(tiny_cfg):
+    """Tiny shapes tile only in the interpreter: a compiled
+    tensor-core product needs every dimension >= 16."""
+    assert gemm.kernel_tiles(tiny_cfg) is None
+    assert gemm.kernel_tiles(tiny_cfg, interpret=True) == (4, 32)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4])
+def test_plain_chunking_equivalence(tiny_cfg, monkeypatch, group):
+    """The plain form's channel groups change only what is live at
+    once, never the result: every group size gives identical output."""
+    from dsabeamformer.ops.gemm import beamform_stokes
+
+    cfg = tiny_cfg
+    wire = make_noise_block(cfg, rms=2.0, seed=93)
+    qw = quantize_weights(make_weights(cfg), cfg.weight_mode, cfg.a_compute)
+    ref_p = np.asarray(beamform_power(wire, qw, cfg, incoherent=True,
+                                      sk_stats=True)[0])
+    ref_s = np.asarray(beamform_stokes(wire, qw, cfg))
+    ref_v = np.asarray(beamform_voltages(wire, qw, cfg))
+    monkeypatch.setattr(gemm, "_PLAIN_CHAN_GROUP", group)
+    cfg2 = cfg.replace(name=f"tiny-g{group}")  # new jit cache entry
+    assert gemm._plain_chan_group(cfg2.n_chan) == group
+    np.testing.assert_array_equal(
+        np.asarray(beamform_power(wire, qw, cfg2, incoherent=True,
+                                  sk_stats=True)[0]), ref_p)
+    np.testing.assert_array_equal(np.asarray(beamform_stokes(wire, qw, cfg2)),
+                                  ref_s)
+    np.testing.assert_array_equal(
+        np.asarray(beamform_voltages(wire, qw, cfg2)), ref_v)
+
+
+@pytest.mark.parametrize("mode", gemm.KERNEL_MODES)
+@pytest.mark.parametrize("product", gemm.PRODUCTS)
+def test_kernel_lowers_for_cuda(monkeypatch, product, mode):
+    """The kernel lowers through Pallas's Triton route for CUDA at the
+    preset's real widths (the lowering runs here; compiling the Triton
+    IR needs the card).  Side outputs on, as the deployed stack runs."""
+    import jax
+    import jax.numpy as jnp
+
+    from dsabeamformer.config import DSA10
+
+    cfg = DSA10.replace(weight_mode=mode, n_chan=64)
+    monkeypatch.setattr(gemm.jax, "default_backend", lambda: "gpu")
+    fn = gemm.beamform_power if product == "power" else gemm.beamform_stokes
+    wire = jax.ShapeDtypeStruct(cfg.device_wire_shape, jnp.uint8)
+    terms = tuple(
+        jax.ShapeDtypeStruct((cfg.n_chan, cfg.gemm_k, 2 * cfg.n_beams),
+                             jnp.int8) for _ in range(cfg.n_weight_terms))
+    qw = gemm.QuantWeights(terms, jax.ShapeDtypeStruct(
+        (cfg.n_chan, cfg.n_weight_terms), jnp.float32))
+    q8 = jax.ShapeDtypeStruct((cfg.n_beams,), jnp.float32)
+    lowered = jax.jit(
+        lambda w, q, s: fn(w, q, cfg, incoherent=True, flag_ants=(3,),
+                           quant8_scales=s, sk_stats=True)
+    ).trace(wire, qw, q8).lower(lowering_platforms=("cuda",))
+    assert "__gpu$xla.gpu.triton" in lowered.as_text()
+
+
+def test_impl_override(tiny_cfg):
+    """impl="plain" runs the plain form anywhere; impl="kernel" raises
+    where the compiled kernel cannot run (here: the cpu backend)."""
+    assert gemm.choose_impl("power", (), tiny_cfg, impl="plain") == "plain"
+    assert gemm.choose_impl("power", (), tiny_cfg, interpret=True,
+                            impl="plain") == "plain"
+    with pytest.raises(ValueError, match="does not tile"):
+        gemm.choose_impl("power", (), tiny_cfg, impl="kernel")
+    from dsabeamformer.config import DSA10
+
+    with pytest.raises(ValueError, match="cannot run on the 'cpu'"):
+        gemm.choose_impl("power", (), DSA10, impl="kernel")
+    with pytest.raises(ValueError, match="unknown implementation"):
+        gemm.choose_impl("power", (), tiny_cfg, impl="xla")

@@ -12,12 +12,12 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.models.calibration import CalTable
-from dsabeamformer_tpu.models.weights import make_weights, weights_numpy_golden
-from dsabeamformer_tpu.ops.gemm import beamform_power
-from dsabeamformer_tpu.ops.quantize import quantize_weights
-from dsabeamformer_tpu.ops.reference import beamform_block_ref
-from dsabeamformer_tpu.utils.testing import assert_power_close
+from dsabeamformer.models.calibration import CalTable
+from dsabeamformer.models.weights import make_weights, weights_numpy_golden
+from dsabeamformer.ops.gemm import beamform_power
+from dsabeamformer.ops.quantize import quantize_weights
+from dsabeamformer.ops.reference import beamform_block_ref
+from dsabeamformer.utils.testing import assert_power_close
 
 FIXTURE = Path(__file__).parent / "data" / "golden_tiny_block.npz"
 

@@ -4,9 +4,9 @@ both wire layouts and both wire forms."""
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.ingest.generator import make_noise_block
-from dsabeamformer_tpu.ops.gemm import device_wire_view
-from dsabeamformer_tpu.ops.incoherent import (
+from dsabeamformer.ingest.generator import make_noise_block
+from dsabeamformer.ops.gemm import device_wire_view
+from dsabeamformer.ops.incoherent import (
     incoherent_power,
     incoherent_power_golden,
 )
@@ -21,7 +21,7 @@ def test_incoherent_matches_golden(tiny_cfg, layout):
     assert p.shape == (cfg.n_chan, cfg.t_block // cfg.navg_time)
     # The device path is integer arithmetic end-to-end; the float64
     # oracle carries ~1e-13 summation rounding, hence allclose not
-    # array_equal (verified identical to the last integer on TPU).
+    # array_equal.
     np.testing.assert_allclose(p, ref, rtol=1e-12)
     # Canonical device form agrees exactly too.
     p_dev = np.asarray(incoherent_power(device_wire_view(wire, cfg), cfg))
@@ -35,9 +35,9 @@ def test_fused_incoherent_matches_golden(tiny_cfg, mode):
     float64 oracle exactly, in every weight mode's x_all layout."""
     import jax
 
-    from dsabeamformer_tpu.models.weights import make_weights
-    from dsabeamformer_tpu.ops.gemm import beamform_power
-    from dsabeamformer_tpu.ops.quantize import quantize_weights
+    from dsabeamformer.models.weights import make_weights
+    from dsabeamformer.ops.gemm import beamform_power
+    from dsabeamformer.ops.quantize import quantize_weights
 
     cfg = tiny_cfg.replace(weight_mode=mode)
     wire = make_noise_block(cfg, rms=2.0, seed=7)
@@ -54,9 +54,9 @@ def test_fused_incoherent_matches_golden(tiny_cfg, mode):
 def test_fused_incoherent_freq_averaging(tiny_cfg):
     import jax
 
-    from dsabeamformer_tpu.models.weights import make_weights
-    from dsabeamformer_tpu.ops.gemm import beamform_power
-    from dsabeamformer_tpu.ops.quantize import quantize_weights
+    from dsabeamformer.models.weights import make_weights
+    from dsabeamformer.ops.gemm import beamform_power
+    from dsabeamformer.ops.quantize import quantize_weights
 
     cfg = tiny_cfg.replace(navg_freq=2)
     wire = make_noise_block(cfg, rms=2.0, seed=9)
@@ -75,10 +75,10 @@ def test_fused_incoherent_stokes_path(tiny_cfg):
     incoherent product from one kernel call, both matching goldens."""
     import jax
 
-    from dsabeamformer_tpu.models.weights import make_weights, weights_numpy_golden
-    from dsabeamformer_tpu.ops.gemm import beamform_stokes
-    from dsabeamformer_tpu.ops.quantize import quantize_weights
-    from dsabeamformer_tpu.ops.reference import beamform_stokes_ref
+    from dsabeamformer.models.weights import make_weights, weights_numpy_golden
+    from dsabeamformer.ops.gemm import beamform_stokes
+    from dsabeamformer.ops.quantize import quantize_weights
+    from dsabeamformer.ops.reference import beamform_stokes_ref
 
     cfg = tiny_cfg
     wire = make_noise_block(cfg, rms=2.0, seed=11)
@@ -104,7 +104,7 @@ def test_incoherent_scales_with_signal(tiny_cfg):
 
 def test_wire_level_stats(tiny_cfg):
     """rms tracks the generator drive level; clip fires on hot signals."""
-    from dsabeamformer_tpu.ops.incoherent import wire_level_stats
+    from dsabeamformer.ops.incoherent import wire_level_stats
 
     quiet = make_noise_block(tiny_cfg, rms=1.0, seed=3)
     hot = make_noise_block(tiny_cfg, rms=6.0, seed=3)
@@ -121,8 +121,8 @@ def test_wire_level_stats(tiny_cfg):
 def test_cli_levels(tmp_path, capsys, tiny_cfg):
     import json
 
-    from dsabeamformer_tpu import cli
-    from dsabeamformer_tpu.ingest import dada
+    from dsabeamformer import cli
+    from dsabeamformer.ingest import dada
 
     cap = str(tmp_path / "cap.dada")
     dada.write_dada_file(
@@ -139,7 +139,7 @@ def test_cli_levels(tmp_path, capsys, tiny_cfg):
 
 def _sk_golden(wire, cfg):
     """f64 oracle: per-channel SK over per-sample powers."""
-    from dsabeamformer_tpu.ops.packing import unpack_wire_to_complex
+    from dsabeamformer.ops.packing import unpack_wire_to_complex
 
     v = unpack_wire_to_complex(np.asarray(wire).reshape(cfg.wire_block_shape),
                                cfg.input_layout)[..., : cfg.n_ant_active]
@@ -152,7 +152,7 @@ def _sk_golden(wire, cfg):
 
 
 def test_sk_matches_golden(tiny_cfg):
-    from dsabeamformer_tpu.ops.incoherent import (
+    from dsabeamformer.ops.incoherent import (
         sk_block_stats,
         sk_estimate,
         sk_samples_per_block,
@@ -173,8 +173,8 @@ def test_sk_flags_tone_and_impulse(tiny_cfg):
     """A CW carrier (constant-modulus power) drives SK far below 1; an
     impulsive burst drives it far above; both get flagged, the clean
     channels don't."""
-    from dsabeamformer_tpu.ingest.generator import make_tone_block
-    from dsabeamformer_tpu.ops.incoherent import (
+    from dsabeamformer.ingest.generator import make_tone_block
+    from dsabeamformer.ops.incoherent import (
         sk_block_stats,
         sk_estimate,
         sk_flags,
@@ -200,7 +200,7 @@ def test_sk_flags_tone_and_impulse(tiny_cfg):
 
 
 def test_sk_dead_channel_flagged(tiny_cfg):
-    from dsabeamformer_tpu.ops.incoherent import (
+    from dsabeamformer.ops.incoherent import (
         sk_block_stats,
         sk_estimate,
         sk_flags,
@@ -219,8 +219,8 @@ def test_sk_dead_channel_flagged(tiny_cfg):
 
 
 def test_format_zap_spec_roundtrip():
-    from dsabeamformer_tpu.models.weights import parse_zap
-    from dsabeamformer_tpu.ops.incoherent import format_zap_spec
+    from dsabeamformer.models.weights import parse_zap
+    from dsabeamformer.ops.incoherent import format_zap_spec
 
     for chans in ([], [5], [1, 2, 3], [0, 2, 3, 4, 9], [7, 7, 6]):
         spec = format_zap_spec(chans)
@@ -231,10 +231,10 @@ def test_format_zap_spec_roundtrip():
 def test_cli_rfi(tmp_path, capsys, tiny_cfg):
     import json
 
-    from dsabeamformer_tpu import cli
-    from dsabeamformer_tpu.ingest import dada
-    from dsabeamformer_tpu.ingest.generator import make_tone_block
-    from dsabeamformer_tpu.models.weights import parse_zap
+    from dsabeamformer import cli
+    from dsabeamformer.ingest import dada
+    from dsabeamformer.ingest.generator import make_tone_block
+    from dsabeamformer.models.weights import parse_zap
 
     cfg = tiny_cfg
 
@@ -260,7 +260,7 @@ def test_cli_rfi(tmp_path, capsys, tiny_cfg):
 def test_sk_ant_axis_localizes_bad_antenna(tiny_cfg):
     """axis='ant': an antenna with impulsive output stands out; clean
     antennas sit at SK~1."""
-    from dsabeamformer_tpu.ops.incoherent import (
+    from dsabeamformer.ops.incoherent import (
         sk_block_stats,
         sk_estimate,
         sk_flags,
@@ -287,9 +287,9 @@ def test_sk_ant_axis_localizes_bad_antenna(tiny_cfg):
 def test_cli_rfi_per_ant(tmp_path, capsys, tiny_cfg):
     import json
 
-    from dsabeamformer_tpu import cli
-    from dsabeamformer_tpu.ingest import dada
-    from dsabeamformer_tpu.models.weights import parse_zap
+    from dsabeamformer import cli
+    from dsabeamformer.ingest import dada
+    from dsabeamformer.models.weights import parse_zap
 
     cfg = tiny_cfg
 

@@ -3,28 +3,28 @@ the `MeshStreamingBeamformer` drives `sharded_beamformer` block by
 block — sharded H2D, per-shard compute, assembled drain, mid-stream
 sharded weight updates, drop accounting — on the 8-virtual-CPU-device
 mesh.  The reference never had this surface (its scale-out was one
-process per GPU, SURVEY.md §2); the TPU-native deployment story is one
-process driving a v5e slice."""
+process per GPU, SURVEY.md §2); here one process drives all the cards
+of a host."""
 
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.config import TINY
-from dsabeamformer_tpu.ingest.generator import make_noise_block
-from dsabeamformer_tpu.models.calibration import CalTable
-from dsabeamformer_tpu.models.weights import (
+from dsabeamformer.config import TINY
+from dsabeamformer.ingest.generator import make_noise_block
+from dsabeamformer.models.calibration import CalTable
+from dsabeamformer.models.weights import (
     make_weights,
     weights_numpy_golden,
 )
-from dsabeamformer_tpu.ops.quantize import quantize_weights
-from dsabeamformer_tpu.ops.reference import beamform_block_ref
-from dsabeamformer_tpu.parallel.sharding import make_mesh
-from dsabeamformer_tpu.pipeline import (
+from dsabeamformer.ops.quantize import quantize_weights
+from dsabeamformer.ops.reference import beamform_block_ref
+from dsabeamformer.parallel.sharding import make_mesh
+from dsabeamformer.pipeline import (
     CollectSink,
     MeshStreamingBeamformer,
     SyntheticSource,
 )
-from dsabeamformer_tpu.utils.testing import assert_power_close
+from dsabeamformer.utils.testing import assert_power_close
 
 
 @pytest.fixture(scope="module")
@@ -35,8 +35,8 @@ def mesh():
 @pytest.fixture(scope="module")
 def cfg():
     # TINY geometry with the DSA-110 sharding structure: 16 channels
-    # divide the 8-way mesh, per-shard channels divide chan_tile.
-    return TINY.replace(n_chan=16, n_chan_total=16, chan_tile=2)
+    # divide the 8-way mesh.
+    return TINY.replace(n_chan=16, n_chan_total=16)
 
 
 def _golden(cfg, wire, cal=None):
@@ -112,7 +112,7 @@ def test_mesh_stream_midstream_weight_update(cfg, mesh):
 
 
 def test_mesh_stream_band_power_collective(cfg, mesh):
-    """The optional band-total-power psum (the one deliberate ICI
+    """The optional band-total-power psum (the one deliberate
     collective) streams alongside the products."""
     wire = np.asarray(make_noise_block(cfg, rms=2.0, seed=21))
     qw = quantize_weights(make_weights(cfg), cfg.weight_mode)
@@ -136,7 +136,7 @@ def test_mesh_stream_band_power_collective(cfg, mesh):
 
 def test_mesh_stream_stokes(cfg, mesh):
     """products='stokes' through the mesh driver."""
-    from dsabeamformer_tpu.ops.reference import beamform_stokes_ref
+    from dsabeamformer.ops.reference import beamform_stokes_ref
 
     wire = np.asarray(make_noise_block(cfg, rms=2.0, seed=31))
     qw = quantize_weights(make_weights(cfg), cfg.weight_mode)
@@ -161,7 +161,7 @@ def test_mesh_stream_fused_incoherent(cfg, mesh):
     """The fused incoherent side product rides the mesh step (one
     kernel pass per shard, channel-sharded [F', T'] assembled at
     drain) and matches its float64 oracle."""
-    from dsabeamformer_tpu.ops.incoherent import incoherent_power_golden
+    from dsabeamformer.ops.incoherent import incoherent_power_golden
 
     wire = np.asarray(make_noise_block(cfg, rms=2.0, seed=61))
     qw = quantize_weights(make_weights(cfg), cfg.weight_mode)
@@ -183,16 +183,16 @@ def test_mesh_stream_fused_sk_monitor(cfg, mesh):
     """The streaming RFI monitor on the mesh: the kernel emits the
     channel-sharded SK accumulators, the monitor polls them at drain,
     and an excision event re-shards fresh weights mid-stream."""
-    from dsabeamformer_tpu.ops.incoherent import sk_block_stats
-    from dsabeamformer_tpu.ops.rfi import RFIMonitor
+    from dsabeamformer.ops.incoherent import sk_block_stats
+    from dsabeamformer.ops.rfi import RFIMonitor
 
     wire = np.asarray(make_noise_block(cfg, rms=2.0, seed=71))
     qw = quantize_weights(make_weights(cfg), cfg.weight_mode)
     ref_sk = {k: np.asarray(v) for k, v in sk_block_stats(wire, cfg).items()}
 
     # First: the sharded accumulators equal the single-device pass.
-    from dsabeamformer_tpu.ops.gemm import device_wire_view
-    from dsabeamformer_tpu.parallel.sharding import (
+    from dsabeamformer.ops.gemm import device_wire_view
+    from dsabeamformer.parallel.sharding import (
         shard_weights,
         sharded_beamformer,
         sharded_wire_sharding,
@@ -228,8 +228,8 @@ def test_mesh_stream_fused_quant8(cfg, mesh):
     byte-equal to quantizing the assembled f32 product."""
     import jax
 
-    from dsabeamformer_tpu.ops.gemm import device_wire_view
-    from dsabeamformer_tpu.parallel.sharding import (
+    from dsabeamformer.ops.gemm import device_wire_view
+    from dsabeamformer.parallel.sharding import (
         shard_weights,
         sharded_beamformer,
         sharded_wire_sharding,
@@ -252,7 +252,7 @@ def test_mesh_stream_with_search_monitor(cfg, mesh):
     """The live single-pulse search monitor rides the mesh stream: it
     observes every drained (assembled) product block and recovers an
     injected post-detection pulse."""
-    from dsabeamformer_tpu.ops.dedisperse import (
+    from dsabeamformer.ops.dedisperse import (
         SearchMonitor,
         dm_trial_grid,
     )
@@ -300,7 +300,7 @@ def test_mesh_stream_with_search_monitor(cfg, mesh):
 
 
 def test_mesh_rejects_quant8_with_band_power(cfg, mesh):
-    from dsabeamformer_tpu.parallel.sharding import sharded_beamformer
+    from dsabeamformer.parallel.sharding import sharded_beamformer
 
     with pytest.raises(ValueError, match="band power"):
         sharded_beamformer(cfg, mesh, fused_quant8=True,
@@ -311,11 +311,11 @@ def test_mesh_stream_fused_quant8_driver_byte_equal(cfg, mesh, tmp_path):
     """Driver-level: an 8-bit filterbank MESH run engages the fused
     in-kernel quantizer after auto-cal and produces byte-identical
     .fil products to the single-device driver on the same capture."""
-    from dsabeamformer_tpu.ingest.sigproc import (
+    from dsabeamformer.ingest.sigproc import (
         FilterbankSink,
         read_filterbank,
     )
-    from dsabeamformer_tpu.pipeline import FileSource, StreamingBeamformer
+    from dsabeamformer.pipeline import FileSource, StreamingBeamformer
 
     wires = [np.asarray(make_noise_block(cfg, rms=2.0, seed=s))
              for s in (51, 52, 53)]
@@ -373,7 +373,7 @@ def test_mesh_stream_tracker_resharding(cfg, mesh):
     """A FringeTracker's per-block updates flow through update_weights
     and get re-sharded: the stream must track the golden pipeline built
     from the tracker's own tables."""
-    from dsabeamformer_tpu.models.tracking import FringeTracker
+    from dsabeamformer.models.tracking import FringeTracker
 
     wire = np.asarray(make_noise_block(cfg, rms=2.0, seed=51))
     qw = quantize_weights(make_weights(cfg), cfg.weight_mode)
@@ -389,7 +389,7 @@ def test_mesh_stream_tracker_resharding(cfg, mesh):
     # pointing for SOME update time <= its own block time (the tracker
     # only regenerates when the drift exceeds its phase budget, and the
     # swap lags dispatch by <= depth blocks).
-    from dsabeamformer_tpu.utils.testing import relative_power_error
+    from dsabeamformer.utils.testing import relative_power_error
 
     cand_refs = [
         beamform_block_ref(

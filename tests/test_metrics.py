@@ -4,9 +4,11 @@ stream IS the north-star metric)."""
 import json
 import time
 
-from dsabeamformer_tpu.config import TINY
-from dsabeamformer_tpu.utils.bench import run_benchmark
-from dsabeamformer_tpu.utils.metrics import BlockStats, StreamStats
+import pytest
+
+from dsabeamformer.config import TINY
+from dsabeamformer.utils.bench import run_benchmark
+from dsabeamformer.utils.metrics import BlockStats, StreamStats
 
 
 def test_block_stats_line_format():
@@ -20,7 +22,6 @@ def test_stream_stats_record():
     st = StreamStats(cfg_name="tiny")
     st.n_blocks = 4
     st.bytes_in = 4 * TINY.wire_block_bytes
-    st.macs = 4 * TINY.macs_per_block * TINY.n_weight_terms
     time.sleep(0.01)
     st.finish()
     rec = st.record(TINY)
@@ -54,7 +55,7 @@ def test_bench_stream_record_on_cpu():
 def test_trace_capture_and_summary(tmp_path, tiny_cfg):
     """profiling.profile_block_step captures a real device trace and
     returns a per-op duration breakdown (works on the CPU backend)."""
-    from dsabeamformer_tpu.utils.profiling import profile_block_step
+    from dsabeamformer.utils.profiling import profile_block_step
 
     rows = profile_block_step(tiny_cfg, n_blocks=2, log_dir=str(tmp_path))
     assert rows and all({"name", "count", "total_ms"} <= set(r) for r in rows)
@@ -64,7 +65,7 @@ def test_trace_capture_and_summary(tmp_path, tiny_cfg):
 def test_cli_trace(tmp_path, capsys):
     import json as _json
 
-    from dsabeamformer_tpu import cli
+    from dsabeamformer import cli
 
     rc = cli.main(["trace", "--config", "tiny", "--blocks", "2",
                    "--out", str(tmp_path)])
@@ -73,10 +74,39 @@ def test_cli_trace(tmp_path, capsys):
     assert out["ops"]
 
 
-def test_peak_macs_env_override(monkeypatch):
-    from dsabeamformer_tpu.utils import metrics
+@pytest.mark.parametrize("kind", ["cpu", "Tesla T4", "NVIDIA A100-SXM4-80GB"])
+def test_peak_table_raises_on_unknown_kind(kind):
+    """No assumed peak: a device the table does not know is an error."""
+    from dsabeamformer.utils import metrics
 
-    monkeypatch.setenv("DSABF_PEAK_INT8_MACS", "1.5e14")
-    assert metrics.peak_macs_per_s(True) == 1.5e14
-    monkeypatch.setenv("DSABF_PEAK_BF16_MACS", "7.5e13")
-    assert metrics.peak_macs_per_s(False) == 7.5e13
+    with pytest.raises(ValueError, match="no published peaks"):
+        metrics.device_peaks(kind)
+
+
+@pytest.mark.parametrize("kind", ["NVIDIA H100 80GB HBM3", "NVIDIA H100 PCIe"])
+def test_peak_table_h100_rows(kind):
+    from dsabeamformer.utils import metrics
+
+    pk = metrics.device_peaks(kind)
+    assert set(pk) == {"int8_ops_per_s", "bf16_flops_per_s",
+                       "hbm_bytes_per_s"}
+    # int8 tensor-core rate is twice the bf16 rate on Hopper.
+    assert pk["int8_ops_per_s"] == pytest.approx(2 * pk["bf16_flops_per_s"],
+                                                 rel=0.01)
+
+
+def test_roofline_share_names_its_bound():
+    from dsabeamformer.utils import metrics
+
+    kind = "NVIDIA H100 80GB HBM3"
+    pk = metrics.PEAKS[kind]
+    # 1 s of peak int8 work and a trivial byte count, done in 2 s.
+    r = metrics.roofline_share(pk["int8_ops_per_s"], 1.0, 2.0, kind)
+    assert r == {"share": pytest.approx(0.5), "bound": "compute"}
+    r = metrics.roofline_share(1.0, pk["hbm_bytes_per_s"], 4.0, kind)
+    assert r == {"share": pytest.approx(0.25), "bound": "memory"}
+
+
+def test_bench_records_name_the_device():
+    rec = run_benchmark(TINY, n_blocks=1, mode="kernel")
+    assert rec["device"] == {"platform": "cpu", "kind": "cpu", "count": 8}

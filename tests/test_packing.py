@@ -4,7 +4,7 @@ kernel must be exact — these pin the bit semantics for every path)."""
 import jax.numpy as jnp
 import numpy as np
 
-from dsabeamformer_tpu.ops.packing import pack_4r4i, unpack_4r4i, unpack_wire_to_complex
+from dsabeamformer.ops.packing import pack_4r4i, unpack_4r4i, unpack_wire_to_complex
 
 
 def test_roundtrip_all_nibble_pairs():

@@ -8,14 +8,14 @@ import uuid
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.ingest import dada
-from dsabeamformer_tpu.ingest.generator import make_noise_block, make_point_source_block
-from dsabeamformer_tpu.ingest.ring import RingBuffer
-from dsabeamformer_tpu.models.calibration import CalTable
-from dsabeamformer_tpu.models.weights import make_weights, weights_numpy_golden
-from dsabeamformer_tpu.ops.quantize import quantize_weights
-from dsabeamformer_tpu.ops.reference import beamform_block_ref
-from dsabeamformer_tpu.pipeline import (
+from dsabeamformer.ingest import dada
+from dsabeamformer.ingest.generator import make_noise_block, make_point_source_block
+from dsabeamformer.ingest.ring import RingBuffer
+from dsabeamformer.models.calibration import CalTable
+from dsabeamformer.models.weights import make_weights, weights_numpy_golden
+from dsabeamformer.ops.quantize import quantize_weights
+from dsabeamformer.ops.reference import beamform_block_ref
+from dsabeamformer.pipeline import (
     CollectSink,
     FileSource,
     RingSource,
@@ -23,7 +23,7 @@ from dsabeamformer_tpu.pipeline import (
     SyntheticSource,
     run_stream,
 )
-from dsabeamformer_tpu.utils.testing import assert_power_close
+from dsabeamformer.utils.testing import assert_power_close
 
 
 @pytest.fixture()
@@ -159,9 +159,9 @@ def test_stream_stokes_products(tiny_cfg, qw):
     """products='stokes': the driver streams I/Q/U/V blocks to the sink."""
     import numpy as np
 
-    from dsabeamformer_tpu.models.weights import weights_numpy_golden
-    from dsabeamformer_tpu.ops.reference import beamform_stokes_ref
-    from dsabeamformer_tpu.pipeline import StreamingBeamformer
+    from dsabeamformer.models.weights import weights_numpy_golden
+    from dsabeamformer.ops.reference import beamform_stokes_ref
+    from dsabeamformer.pipeline import StreamingBeamformer
 
     blocks = [make_noise_block(tiny_cfg, rms=2.0, seed=s) for s in range(2)]
     src = SyntheticSource(tiny_cfg, blocks, n_blocks=2)
@@ -184,8 +184,8 @@ def test_stream_stokes_products(tiny_cfg, qw):
 def test_stream_incoherent_side_channel(tiny_cfg, qw):
     import numpy as np
 
-    from dsabeamformer_tpu.ops.incoherent import incoherent_power_golden
-    from dsabeamformer_tpu.pipeline import StreamingBeamformer
+    from dsabeamformer.ops.incoherent import incoherent_power_golden
+    from dsabeamformer.pipeline import StreamingBeamformer
 
     blocks = [make_noise_block(tiny_cfg, rms=2.0, seed=s) for s in range(2)]
     src = SyntheticSource(tiny_cfg, blocks, n_blocks=2)
@@ -203,7 +203,7 @@ def test_stream_incoherent_side_channel(tiny_cfg, qw):
 def test_bad_products_rejected(tiny_cfg, qw):
     import pytest
 
-    from dsabeamformer_tpu.pipeline import StreamingBeamformer
+    from dsabeamformer.pipeline import StreamingBeamformer
 
     with pytest.raises(ValueError, match="power|stokes"):
         StreamingBeamformer(tiny_cfg, qw, None, products="nope")

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.ingest.generator import make_noise_block
-from dsabeamformer_tpu.models.weights import make_weights
-from dsabeamformer_tpu.ops.quantize import quantize_weights
-from dsabeamformer_tpu.pipeline import (
+from dsabeamformer.ingest.generator import make_noise_block
+from dsabeamformer.models.weights import make_weights
+from dsabeamformer.ops.quantize import quantize_weights
+from dsabeamformer.pipeline import (
     CollectSink,
     StreamingBeamformer,
     SyntheticSource,

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dsabeamformer_tpu.models.weights import make_weights
-from dsabeamformer_tpu.ops.quantize import cat_weights, quantize_weights
+from dsabeamformer.models.weights import make_weights
+from dsabeamformer.ops.quantize import cat_weights, quantize_weights
 
 
 def test_cat_weights_layout(tiny_cfg):

@@ -5,8 +5,8 @@ robust contrast, ASCII/PGM rendering, and the CLI wiring."""
 import numpy as np
 import pytest
 
-import dsabeamformer_tpu.utils.quicklook as dedisperse_mod
-from dsabeamformer_tpu.utils.quicklook import (
+import dsabeamformer.utils.quicklook as dedisperse_mod
+from dsabeamformer.utils.quicklook import (
     ASCII_RAMP,
     downsample_mean,
     load_dynamic_spectrum,
@@ -80,9 +80,9 @@ def test_write_pgm_roundtrip(tmp_path):
 
 
 def _write_product(tmp_path, cfg, wires, name="out.dada"):
-    from dsabeamformer_tpu.models.weights import make_weights
-    from dsabeamformer_tpu.ops.quantize import quantize_weights
-    from dsabeamformer_tpu.pipeline import FileSink, FileSource, run_stream
+    from dsabeamformer.models.weights import make_weights
+    from dsabeamformer.ops.quantize import quantize_weights
+    from dsabeamformer.pipeline import FileSink, FileSource, run_stream
 
     raw = tmp_path / "cap.raw"
     raw.write_bytes(b"".join(w.tobytes() for w in wires))
@@ -94,8 +94,8 @@ def _write_product(tmp_path, cfg, wires, name="out.dada"):
 
 
 def test_load_dynamic_spectrum_dada(tiny_cfg, tmp_path):
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.ingest.dada import read_product_file
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.ingest.dada import read_product_file
 
     cfg = tiny_cfg
     wires = [make_noise_block(cfg, rms=2.0, seed=s) for s in (51, 52)]
@@ -114,7 +114,7 @@ def test_load_dynamic_spectrum_dada(tiny_cfg, tmp_path):
 
 
 def test_load_dynamic_spectrum_fil(tiny_cfg, tmp_path):
-    from dsabeamformer_tpu.ingest.sigproc import FilterbankSink
+    from dsabeamformer.ingest.sigproc import FilterbankSink
 
     cfg = tiny_cfg
     f_out, t_out, b_out = cfg.out_block_shape
@@ -139,11 +139,11 @@ def test_formats_agree_on_orientation(tiny_cfg, tmp_path):
     """The same observation rendered from .fil and .dada output is the
     SAME image: equal dynamic spectra and band edges (the .fil flip is
     undone by the loader)."""
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.ingest.sigproc import FilterbankSink
-    from dsabeamformer_tpu.models.weights import make_weights
-    from dsabeamformer_tpu.ops.quantize import quantize_weights
-    from dsabeamformer_tpu.pipeline import FileSource, run_stream
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.ingest.sigproc import FilterbankSink
+    from dsabeamformer.models.weights import make_weights
+    from dsabeamformer.ops.quantize import quantize_weights
+    from dsabeamformer.pipeline import FileSource, run_stream
 
     cfg = tiny_cfg
     wires = [make_noise_block(cfg, rms=2.0, seed=91)]
@@ -164,8 +164,8 @@ def test_formats_agree_on_orientation(tiny_cfg, tmp_path):
 
 
 def test_cmd_waterfall_end_to_end(tiny_cfg, tmp_path, capsys):
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
 
     cfg = tiny_cfg
     wires = [make_noise_block(cfg, rms=2.0, seed=s) for s in (61, 62)]
@@ -188,8 +188,8 @@ def test_cmd_waterfall_end_to_end(tiny_cfg, tmp_path, capsys):
 
 
 def test_cmd_waterfall_full_pgm_and_fil(tiny_cfg, tmp_path, capsys):
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.sigproc import FilterbankSink
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.sigproc import FilterbankSink
 
     cfg = tiny_cfg
     f_out, t_out, b_out = cfg.out_block_shape
@@ -209,8 +209,8 @@ def test_cmd_waterfall_full_pgm_and_fil(tiny_cfg, tmp_path, capsys):
 
 
 def test_cmd_waterfall_clip_validation(tiny_cfg, tmp_path, capsys):
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.sigproc import FilterbankSink
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.sigproc import FilterbankSink
 
     cfg = tiny_cfg
     f_out, t_out, b_out = cfg.out_block_shape
@@ -227,10 +227,10 @@ def test_incoherent_dada_product_and_waterfall(tiny_cfg, tmp_path, capsys):
     """--incoherent-file with a .dada path now writes a parseable
     product (PAYLOAD=INCOHERENT_POWER, no beam axis); read_product_file
     and dsabf waterfall both handle it."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.dada import read_product_file
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.ops.incoherent import incoherent_power_golden
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.dada import read_product_file
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.ops.incoherent import incoherent_power_golden
 
     cfg = tiny_cfg
     wires = [make_noise_block(cfg, rms=2.0, seed=s) for s in (71, 72)]
@@ -262,7 +262,7 @@ def test_dedisperse_aligns_synthetic_pulse():
     """A pulse injected with the cold-plasma delay curve lines up in
     one time bin after dedispersing at the true DM; DM 0 is identity;
     vacated samples are median-filled."""
-    from dsabeamformer_tpu.utils.quicklook import DM_CONST_S, dedisperse
+    from dsabeamformer.utils.quicklook import DM_CONST_S, dedisperse
 
     meta = {"f_lo_mhz": 1280.0, "f_hi_mhz": 1530.0, "tsamp_s": 1e-3}
     t, nf, dm, t0 = 256, 32, 50.0, 10
@@ -285,8 +285,8 @@ def test_dedisperse_aligns_synthetic_pulse():
 
 
 def test_cmd_waterfall_dm(tiny_cfg, tmp_path, capsys):
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
 
     cfg = tiny_cfg
     wires = [make_noise_block(cfg, rms=2.0, seed=s) for s in (75, 76)]
@@ -302,7 +302,7 @@ def test_cmd_waterfall_dm(tiny_cfg, tmp_path, capsys):
 
 def _pulse_dm(cfg, span_samples, tsamp):
     """DM whose band-edge delay spans ~span_samples at tsamp."""
-    from dsabeamformer_tpu.config import DM_CONST_S
+    from dsabeamformer.config import DM_CONST_S
 
     f = cfg.freqs_hz() / 1e6
     return span_samples * tsamp / (DM_CONST_S * (f.min()**-2 - f.max()**-2))
@@ -312,8 +312,8 @@ def test_dispersed_pulse_end_to_end_recovery(tiny_cfg, tmp_path):
     """Injected-FRB drill: generator -> beamform pipeline -> product ->
     dedisperse at the true DM -> the pulse stands up in one output
     bin; at DM 0 it stays smeared across the sweep."""
-    from dsabeamformer_tpu.config import DM_CONST_S
-    from dsabeamformer_tpu.ingest.generator import make_dispersed_pulse_block
+    from dsabeamformer.config import DM_CONST_S
+    from dsabeamformer.ingest.generator import make_dispersed_pulse_block
 
     cfg = tiny_cfg.replace(navg_time=2)
     tsamp_out = cfg.sample_period_s * cfg.navg_time
@@ -346,8 +346,8 @@ def test_dispersed_pulse_end_to_end_recovery(tiny_cfg, tmp_path):
 def test_cli_simulate_pulse_capture_roundtrip(tiny_cfg, tmp_path, capsys):
     """dsabf simulate --pulse-dm writes a capture whose block 0 carries
     the dispersed pulse; the full CLI chain recovers it."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.config import DM_CONST_S
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.config import DM_CONST_S
 
     cfg = tiny_cfg.replace(navg_time=2)
     f = cfg.freqs_hz() / 1e6
@@ -378,10 +378,10 @@ def test_cli_simulate_pulse_capture_roundtrip(tiny_cfg, tmp_path, capsys):
 def test_cli_simulate_pulse_only_first_block(tiny_cfg, tmp_path, capsys):
     """The injected pulse appears ONCE (block 0), not cycled through
     the distinct-block pool; --dm 0 still prints the profile line."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.config import DM_CONST_S
-    from dsabeamformer_tpu.ingest.dada import read_dada_file
-    from dsabeamformer_tpu.ops.incoherent import incoherent_power_golden
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.config import DM_CONST_S
+    from dsabeamformer.ingest.dada import read_dada_file
+    from dsabeamformer.ops.incoherent import incoherent_power_golden
 
     cfg = tiny_cfg.replace(navg_time=2)
     f = cfg.freqs_hz() / 1e6
@@ -420,7 +420,7 @@ def test_cli_simulate_pulse_only_first_block(tiny_cfg, tmp_path, capsys):
 def test_fold_spectrogram_recovers_pulsar():
     """Folding at the true period stands the pulse up at its phase;
     a wrong period spreads it; validation errors are clean."""
-    from dsabeamformer_tpu.utils.quicklook import (
+    from dsabeamformer.utils.quicklook import (
         fold_spectrogram, profile_snr)
 
     rng = np.random.default_rng(5)
@@ -456,8 +456,8 @@ def test_cmd_fold_end_to_end(tmp_path, capsys):
     strong S/N at the injected phase; PGM written; clean errors."""
     import json
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.sigproc import _encode_header_dict
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.sigproc import _encode_header_dict
 
     rng = np.random.default_rng(7)
     tsamp, period, t, f = 1e-3, 0.05, 3000, 16
@@ -493,7 +493,7 @@ def test_cli_pulsar_fold_drill(tiny_cfg, tmp_path, capsys):
     boundaries) and stands up at its phase; a wrong period collapses."""
     import json
 
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     cfg = tiny_cfg.replace(navg_time=2)
     period = 16  # wire samples = 8 output samples; 4 pulses/block

@@ -7,12 +7,12 @@ import uuid
 
 import numpy as np
 
-from dsabeamformer_tpu.ingest import dada
-from dsabeamformer_tpu.ingest.generator import make_noise_block
-from dsabeamformer_tpu.ingest.ring import RingBuffer
-from dsabeamformer_tpu.models.weights import make_weights
-from dsabeamformer_tpu.ops.quantize import quantize_weights
-from dsabeamformer_tpu.pipeline import CollectSink, RingSource, run_stream
+from dsabeamformer.ingest import dada
+from dsabeamformer.ingest.generator import make_noise_block
+from dsabeamformer.ingest.ring import RingBuffer
+from dsabeamformer.models.weights import make_weights
+from dsabeamformer.ops.quantize import quantize_weights
+from dsabeamformer.pipeline import CollectSink, RingSource, run_stream
 
 
 def test_consumer_restart_reattaches(tiny_cfg):

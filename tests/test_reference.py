@@ -4,13 +4,13 @@ check the reference used."""
 
 import numpy as np
 
-from dsabeamformer_tpu.ingest.generator import (
+from dsabeamformer.ingest.generator import (
     make_noise_block,
     make_point_source_block,
     make_tone_block,
 )
-from dsabeamformer_tpu.models.weights import weights_numpy_golden
-from dsabeamformer_tpu.ops.reference import (
+from dsabeamformer.models.weights import weights_numpy_golden
+from dsabeamformer.ops.reference import (
     average_ref,
     beamform_block_ref,
     beamform_voltages_ref,
@@ -50,7 +50,7 @@ def test_coherent_gain_scales_with_antennas(tiny_cfg):
         tiny_cfg, angle_rad=angles[target], amplitude=5.0, noise_rms=0.0, seed=5
     )
     w = weights_numpy_golden(tiny_cfg)
-    from dsabeamformer_tpu.ops.packing import unpack_wire_to_complex
+    from dsabeamformer.ops.packing import unpack_wire_to_complex
 
     volt = unpack_wire_to_complex(wire, tiny_cfg.input_layout)
     bv = beamform_voltages_ref(w, volt)
@@ -88,7 +88,7 @@ def test_tone_block_single_channel(tiny_cfg):
 
 def test_noise_block_statistics(tiny_cfg):
     wire = make_noise_block(tiny_cfg, rms=2.0, seed=9)
-    from dsabeamformer_tpu.ops.packing import unpack_wire_to_complex
+    from dsabeamformer.ops.packing import unpack_wire_to_complex
 
     v = unpack_wire_to_complex(wire, tiny_cfg.input_layout)
     act = v[..., : tiny_cfg.n_ant_active]

@@ -7,8 +7,8 @@ import json
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.ingest.generator import make_noise_block, make_tone_block
-from dsabeamformer_tpu.ops.rfi import RFIMonitor
+from dsabeamformer.ingest.generator import make_noise_block, make_tone_block
+from dsabeamformer.ops.rfi import RFIMonitor
 
 
 def _tone_infected(cfg, seed, chan=2, amp=6.0):
@@ -74,9 +74,9 @@ def test_sampled_sk_gates_kernel_variant(tiny_cfg):
     at the dsa10 preset — not free), sampled blocks carry the
     accumulators, and the monitor still excises from the sampled
     subset.  Warmup compiles both variants so neither stalls live."""
-    from dsabeamformer_tpu.models.weights import make_weights
-    from dsabeamformer_tpu.ops.quantize import quantize_weights
-    from dsabeamformer_tpu.pipeline import (
+    from dsabeamformer.models.weights import make_weights
+    from dsabeamformer.ops.quantize import quantize_weights
+    from dsabeamformer.pipeline import (
         CollectSink, StreamingBeamformer, SyntheticSource)
 
     cfg = tiny_cfg
@@ -143,8 +143,8 @@ def test_monitor_validation(tiny_cfg):
 
 
 def test_cli_rfi_auto_zeroes_channel_midstream(tiny_cfg, tmp_path, capsys):
-    from dsabeamformer_tpu import cli
-    from dsabeamformer_tpu.ingest.dada import read_product_file
+    from dsabeamformer import cli
+    from dsabeamformer.ingest.dada import read_product_file
 
     cfg = tiny_cfg
     raw = tmp_path / "cap.raw"
@@ -172,7 +172,7 @@ def test_cli_rfi_auto_zeroes_channel_midstream(tiny_cfg, tmp_path, capsys):
 
 def test_cli_rfi_auto_rejects_prequantized_weights(tiny_cfg, tmp_path,
                                                    capsys):
-    from dsabeamformer_tpu import cli
+    from dsabeamformer import cli
 
     cfg = tiny_cfg
     raw = tmp_path / "cap.raw"
@@ -245,8 +245,8 @@ def test_cli_rfi_auto_with_tracker_uses_current_pointing(tiny_cfg,
                                                         tmp_path, capsys):
     """--track + --rfi-auto: excision must ride the tracker (current
     pointing), not a t=0 regeneration; the zap still lands."""
-    from dsabeamformer_tpu import cli
-    from dsabeamformer_tpu.ingest.dada import read_product_file
+    from dsabeamformer import cli
+    from dsabeamformer.ingest.dada import read_product_file
 
     cfg = tiny_cfg
     raw = tmp_path / "cap.raw"
@@ -269,8 +269,8 @@ def test_cli_rfi_json_has_no_nan(tiny_cfg, tmp_path, capsys):
     """A dead channel must yield null, not bare NaN, in the JSON."""
     import json
 
-    from dsabeamformer_tpu import cli
-    from dsabeamformer_tpu.ingest import dada
+    from dsabeamformer import cli
+    from dsabeamformer.ingest import dada
 
     cfg = tiny_cfg
 
@@ -294,8 +294,8 @@ def test_cli_rfi_auto_stokes_products(tiny_cfg, tmp_path, capsys):
     """--rfi-auto composes with --products stokes: the Stokes kernel
     emits the SK accumulators too, and the excised channel zeroes in
     all four planes."""
-    from dsabeamformer_tpu import cli
-    from dsabeamformer_tpu.ingest.dada import read_product_file
+    from dsabeamformer import cli
+    from dsabeamformer.ingest.dada import read_product_file
 
     cfg = tiny_cfg
     raw = tmp_path / "cap.raw"
@@ -320,9 +320,9 @@ def test_cli_rfi_live_ring_scan(tiny_cfg, tmp_path, capsys):
     enforced."""
     import threading
 
-    from dsabeamformer_tpu import cli
-    from dsabeamformer_tpu.ingest import dada
-    from dsabeamformer_tpu.ingest.ring import RingBuffer
+    from dsabeamformer import cli
+    from dsabeamformer.ingest import dada
+    from dsabeamformer.ingest.ring import RingBuffer
 
     cfg = tiny_cfg
     blocks = [_tone_infected(cfg, seed=110 + s, chan=4) for s in range(4)]

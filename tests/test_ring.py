@@ -8,7 +8,7 @@ import uuid
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.ingest.ring import RingBuffer
+from dsabeamformer.ingest.ring import RingBuffer
 
 
 @pytest.fixture()
@@ -131,7 +131,7 @@ def test_reader_counter_advisory(tiny_cfg):
     warning input."""
     import numpy as np
 
-    from dsabeamformer_tpu.ingest.ring import RingBuffer
+    from dsabeamformer.ingest.ring import RingBuffer
 
     with RingBuffer("rdrcnt", create=True, nbufs=2, bufsz=64) as ring:
         assert ring.readers == 0

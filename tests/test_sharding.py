@@ -5,19 +5,19 @@ import jax
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.config import DSA110
-from dsabeamformer_tpu.ingest.generator import make_noise_block, make_point_source_block
-from dsabeamformer_tpu.models.weights import make_weights, weights_numpy_golden
-from dsabeamformer_tpu.ops.gemm import beamform_power, device_wire_view
-from dsabeamformer_tpu.ops.quantize import quantize_weights
-from dsabeamformer_tpu.ops.reference import beamform_block_ref
-from dsabeamformer_tpu.parallel.sharding import (
+from dsabeamformer.config import DSA110
+from dsabeamformer.ingest.generator import make_noise_block, make_point_source_block
+from dsabeamformer.models.weights import make_weights, weights_numpy_golden
+from dsabeamformer.ops.gemm import beamform_power, device_wire_view
+from dsabeamformer.ops.quantize import quantize_weights
+from dsabeamformer.ops.reference import beamform_block_ref
+from dsabeamformer.parallel.sharding import (
     make_mesh,
     shard_weights,
     sharded_beamformer,
     sharded_wire_sharding,
 )
-from dsabeamformer_tpu.utils.testing import assert_power_close
+from dsabeamformer.utils.testing import assert_power_close
 
 
 @pytest.fixture(scope="module")
@@ -28,10 +28,10 @@ def mesh():
 @pytest.fixture(scope="module")
 def shard_cfg(request):
     # Tiny-geometry stand-in with the DSA-110 *sharding structure*:
-    # channels divide 8-way, per-shard channels divide chan_tile.
-    from dsabeamformer_tpu.config import TINY
+    # channels divide 8-way.
+    from dsabeamformer.config import TINY
 
-    return TINY.replace(n_chan=16, n_chan_total=16, chan_tile=2)
+    return TINY.replace(n_chan=16, n_chan_total=16)
 
 
 def test_sharded_matches_single_device(shard_cfg, mesh):
@@ -87,8 +87,7 @@ def test_dsa110_structure_compiles_small(mesh):
     channel/time extents: the shard_map path must compile and give
     golden-accurate output on 8 devices."""
     cfg = DSA110.replace(
-        n_chan=16, n_chan_total=2048, t_block=64, time_tile=32, chan_tile=2,
-        n_beams=64,
+        n_chan=16, n_chan_total=2048, t_block=64, n_beams=64,
     )
     wire = make_noise_block(cfg, rms=2.0, seed=9)
     step = sharded_beamformer(cfg, mesh)
@@ -104,7 +103,7 @@ def test_dsa110_structure_compiles_small(mesh):
 
 
 def test_mesh_size_must_divide_channels(mesh, shard_cfg):
-    cfg = shard_cfg.replace(n_chan=12, n_chan_total=12, chan_tile=2)
+    cfg = shard_cfg.replace(n_chan=12, n_chan_total=12)
     with pytest.raises(ValueError, match="divisible"):
         sharded_beamformer(cfg, mesh)
 
@@ -112,7 +111,7 @@ def test_mesh_size_must_divide_channels(mesh, shard_cfg):
 def test_sharded_stokes_matches_golden(shard_cfg, mesh):
     """products='stokes' on the channel mesh: I/Q/U/V sharded over
     channels, every plane matching the golden model."""
-    from dsabeamformer_tpu.ops.reference import beamform_stokes_ref
+    from dsabeamformer.ops.reference import beamform_stokes_ref
 
     cfg = shard_cfg
     wire = make_noise_block(cfg, rms=2.0, seed=17)

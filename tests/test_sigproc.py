@@ -5,7 +5,7 @@ selection, multi-block append, and the CLI sink wiring."""
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.ingest.sigproc import (
+from dsabeamformer.ingest.sigproc import (
     FilterbankSink,
     encode_filterbank_header,
     read_filterbank,
@@ -97,10 +97,10 @@ def test_cli_run_writes_filterbank(tiny_cfg, tmp_path):
     """End-to-end through the CLI: simulate a capture file, dsabf run
     --fil-dir, check per-beam files parse and match the golden
     pipeline's per-beam powers."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.models.weights import weights_numpy_golden
-    from dsabeamformer_tpu.ops.reference import beamform_block_ref
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.models.weights import weights_numpy_golden
+    from dsabeamformer.ops.reference import beamform_block_ref
 
     cfg = tiny_cfg
     wire = make_noise_block(cfg, rms=2.0, seed=8)
@@ -125,7 +125,7 @@ def test_cli_run_writes_filterbank(tiny_cfg, tmp_path):
 
 
 def test_cli_fil_dir_exclusive_with_output_file(tiny_cfg, tmp_path):
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     rc = cli_main([
         "run", "--config", "tiny",
@@ -177,7 +177,7 @@ def test_8bit_stokes_offset_encoding(tiny_cfg, tmp_path):
     the sidecar."""
     import json
 
-    from dsabeamformer_tpu.ingest.sigproc import STOKES_QUV_OFFSET
+    from dsabeamformer.ingest.sigproc import STOKES_QUV_OFFSET
 
     cfg = tiny_cfg
     f_out, t_out, b_out = cfg.out_block_shape
@@ -243,7 +243,7 @@ def test_8bit_stokes_device_post_matches_host(tiny_cfg, tmp_path):
 def test_cmd_fil_inspector(tiny_cfg, tmp_path, capsys):
     import json
 
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     cfg = tiny_cfg
     f_out, t_out, b_out = cfg.out_block_shape
@@ -298,7 +298,7 @@ def test_8bit_scales_sidecar_written_on_close(tiny_cfg, tmp_path):
 def test_truncated_header_clean_error(tiny_cfg, tmp_path):
     """A .fil cut off mid-header raises ValueError (not struct.error),
     so `dsabf fil` reports a clean error."""
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     cfg = tiny_cfg
     hdr = encode_filterbank_header(cfg, beam=0)
@@ -313,8 +313,8 @@ def test_cli_fil_flag_errors_are_clean_and_prewarmup(tiny_cfg, tmp_path,
                                                      capsys):
     """Bad --fil-scale / --fil-beams fail with rc 2 and a clean error
     BEFORE weight generation + warmup compile."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
 
     raw = tmp_path / "cap.raw"
     raw.write_bytes(make_noise_block(tiny_cfg, rms=2.0, seed=5).tobytes())
@@ -333,7 +333,7 @@ def test_cmd_fil_stokes_bandpass_uses_stokes_i(tiny_cfg, tmp_path, capsys):
     Q/U/V near-zero means must not pollute them."""
     import json
 
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     cfg = tiny_cfg
     f_out, t_out, b_out = cfg.out_block_shape
@@ -406,10 +406,10 @@ def test_cli_8bit_run_uses_device_path(tiny_cfg, tmp_path):
     quantized with the block-0 auto scale."""
     import json
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.models.weights import weights_numpy_golden
-    from dsabeamformer_tpu.ops.reference import beamform_block_ref
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.models.weights import weights_numpy_golden
+    from dsabeamformer.ops.reference import beamform_block_ref
 
     cfg = tiny_cfg
     wires = [make_noise_block(cfg, rms=2.0, seed=s) for s in (21, 22)]
@@ -439,10 +439,10 @@ def test_fused_quant8_pipeline_byte_equal(tiny_cfg, tmp_path, monkeypatch):
     .fil files to the two-pass device_post path (kernel f32 -> HBM ->
     quantizer).  Block 0 travels f32 either way (auto-cal); every later
     block takes the fused path only in the first run."""
-    from dsabeamformer_tpu.models.weights import make_weights
-    from dsabeamformer_tpu.ops.quantize import quantize_weights
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.pipeline import (
+    from dsabeamformer.models.weights import make_weights
+    from dsabeamformer.ops.quantize import quantize_weights
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.pipeline import (
         FileSource,
         StreamingBeamformer,
     )
@@ -487,10 +487,10 @@ def test_fused_quant8_pipeline_byte_equal(tiny_cfg, tmp_path, monkeypatch):
 def test_fused_quant8_hook_gated_to_8bit(tiny_cfg, tmp_path):
     """A 32-bit sink must NOT engage the fused-quant8 pipeline hook
     (warmup would compile a uint8 kernel variant that never runs)."""
-    from dsabeamformer_tpu.models.weights import make_weights
-    from dsabeamformer_tpu.ops.quantize import quantize_weights
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.pipeline import StreamingBeamformer, SyntheticSource
+    from dsabeamformer.models.weights import make_weights
+    from dsabeamformer.ops.quantize import quantize_weights
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.pipeline import StreamingBeamformer, SyntheticSource
 
     cfg = tiny_cfg
     qw = quantize_weights(make_weights(cfg), cfg.weight_mode, cfg.a_compute)
@@ -508,9 +508,9 @@ def test_cli_8bit_stokes_run(tiny_cfg, tmp_path):
     block 1, nifs=4 uint8 payload, sidecar carries the Q/U/V offset."""
     import json
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.ingest.sigproc import STOKES_QUV_OFFSET
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.ingest.sigproc import STOKES_QUV_OFFSET
 
     cfg = tiny_cfg
     wires = [make_noise_block(cfg, rms=2.0, seed=s) for s in (25, 26)]
@@ -540,8 +540,8 @@ def test_splice_subband_filterbanks(tiny_cfg, tmp_path):
     byte-for-byte (header geometry and payload)."""
     import json
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.sigproc import splice_filterbanks
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.sigproc import splice_filterbanks
 
     cfg = tiny_cfg
     f_out, t_out, b_out = cfg.out_block_shape
@@ -580,7 +580,7 @@ def test_splice_subband_filterbanks(tiny_cfg, tmp_path):
 
 
 def test_splice_rejects_mismatched_inputs(tiny_cfg, tmp_path):
-    from dsabeamformer_tpu.ingest.sigproc import splice_filterbanks
+    from dsabeamformer.ingest.sigproc import splice_filterbanks
 
     cfg = tiny_cfg
     f_out, t_out, b_out = cfg.out_block_shape
@@ -614,7 +614,7 @@ def test_splice_rejects_mismatched_inputs(tiny_cfg, tmp_path):
 def test_splice_8bit_scale_mismatch_warns(tiny_cfg, tmp_path, capsys):
     """8-bit subbands with different auto scales merge, but the CLI
     warns about the stepped bandpass; identical explicit scales don't."""
-    from dsabeamformer_tpu.cli import main as cli_main
+    from dsabeamformer.cli import main as cli_main
 
     cfg = tiny_cfg
     f_out, t_out, b_out = cfg.out_block_shape
@@ -648,8 +648,8 @@ def test_splice_edge_cases(tiny_cfg, tmp_path, capsys):
     and the consistent-scale sidecar carry-forward."""
     import json
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.sigproc import splice_filterbanks
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.sigproc import splice_filterbanks
 
     cfg = tiny_cfg
     f_out, t_out, b_out = cfg.out_block_shape

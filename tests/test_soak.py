@@ -14,14 +14,14 @@ import uuid
 
 import numpy as np
 
-from dsabeamformer_tpu.ingest import dada
-from dsabeamformer_tpu.ingest.generator import make_noise_block
-from dsabeamformer_tpu.ingest.ring import RingBuffer
-from dsabeamformer_tpu.models.weights import make_weights
-from dsabeamformer_tpu.ops.quantize import quantize_weights
-from dsabeamformer_tpu.pipeline import RingSource, StreamingBeamformer
+from dsabeamformer.ingest import dada
+from dsabeamformer.ingest.generator import make_noise_block
+from dsabeamformer.ingest.ring import RingBuffer
+from dsabeamformer.models.weights import make_weights
+from dsabeamformer.ops.quantize import quantize_weights
+from dsabeamformer.pipeline import RingSource, StreamingBeamformer
 
-from dsabeamformer_tpu.utils.hostenv import process_rss_mb as _rss_mb
+from dsabeamformer.utils.hostenv import process_rss_mb as _rss_mb
 
 N_BLOCKS = int(os.environ.get("DSABF_SOAK_BLOCKS", "10000"))
 

@@ -5,20 +5,20 @@ only, SURVEY.md L5)."""
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.ingest.generator import (
+from dsabeamformer.ingest.generator import (
     make_noise_block,
     make_point_source_block,
 )
-from dsabeamformer_tpu.models.weights import make_weights, weights_numpy_golden
-from dsabeamformer_tpu.ops.gemm import (
+from dsabeamformer.models.weights import make_weights, weights_numpy_golden
+from dsabeamformer.ops.gemm import (
     beamform_power,
     beamform_stokes,
     device_wire_view,
 )
-from dsabeamformer_tpu.ops.packing import pack_4r4i, unpack_4r4i
-from dsabeamformer_tpu.ops.quantize import quantize_weights
-from dsabeamformer_tpu.ops.reference import beamform_stokes_ref
-from dsabeamformer_tpu.utils.testing import assert_power_close
+from dsabeamformer.ops.packing import pack_4r4i, unpack_4r4i
+from dsabeamformer.ops.quantize import quantize_weights
+from dsabeamformer.ops.reference import beamform_stokes_ref
+from dsabeamformer.utils.testing import assert_power_close
 
 
 @pytest.mark.parametrize("layout", ["tfpa", "ftpa"])
@@ -55,7 +55,7 @@ def test_fused_stokes_quant8_byte_equal(tiny_cfg):
     sink's on-device quantizer), including the Q/U/V midpoint offset."""
     import jax
 
-    from dsabeamformer_tpu.ingest.sigproc import _get_quant8_stokes
+    from dsabeamformer.ingest.sigproc import _get_quant8_stokes
 
     cfg = tiny_cfg
     wire = make_noise_block(cfg, rms=2.5, seed=91)
@@ -95,11 +95,11 @@ def test_fused_stokes_quant8_pipeline_byte_equal(tiny_cfg, tmp_path,
     """Driver-level equivalence for Stokes products: an 8-bit Stokes
     filterbank run through the fused in-kernel quantizer produces
     byte-identical .fil files to the two-pass device_post path."""
-    from dsabeamformer_tpu.ingest.sigproc import (
+    from dsabeamformer.ingest.sigproc import (
         FilterbankSink,
         read_filterbank,
     )
-    from dsabeamformer_tpu.pipeline import FileSource, StreamingBeamformer
+    from dsabeamformer.pipeline import FileSource, StreamingBeamformer
 
     cfg = tiny_cfg
     wires = [make_noise_block(cfg, rms=2.0, seed=s) for s in (61, 62, 63)]

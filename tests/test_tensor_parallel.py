@@ -7,18 +7,18 @@ import jax
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.config import TINY
-from dsabeamformer_tpu.ingest.generator import make_noise_block, make_point_source_block
-from dsabeamformer_tpu.models.calibration import CalTable
-from dsabeamformer_tpu.models.weights import weights_numpy_golden
-from dsabeamformer_tpu.ops.reference import beamform_block_ref
-from dsabeamformer_tpu.parallel.tensor import (
+from dsabeamformer.config import TINY
+from dsabeamformer.ingest.generator import make_noise_block, make_point_source_block
+from dsabeamformer.models.calibration import CalTable
+from dsabeamformer.models.weights import weights_numpy_golden
+from dsabeamformer.ops.reference import beamform_block_ref
+from dsabeamformer.parallel.tensor import (
     make_tp_mesh,
     shard_weights_tp,
     tp_beamformer,
     tp_wire_sharding,
 )
-from dsabeamformer_tpu.utils.testing import assert_power_close
+from dsabeamformer.utils.testing import assert_power_close
 
 
 def _golden(cfg, wire, cal=None):
@@ -46,7 +46,7 @@ def test_antenna_sharded_matches_golden(mode, rtol):
 
 def test_chan_x_ant_2d_mesh():
     """Composed 2-D mesh: channels collective-free, antennas psum."""
-    cfg = TINY.replace(n_chan=8, n_chan_total=8, chan_tile=2)
+    cfg = TINY.replace(n_chan=8, n_chan_total=8)
     mesh = make_tp_mesh(4, 2)  # 4 chan shards x 2 antenna groups
     wire = make_noise_block(cfg, rms=2.0, seed=13)
     qw = shard_weights_tp(cfg, mesh)
@@ -85,7 +85,7 @@ def test_unsupported_mode_rejected():
 
 def test_antenna_sharded_stokes():
     """Full Stokes over the TP psum: all planes match the golden."""
-    from dsabeamformer_tpu.ops.reference import beamform_stokes_ref
+    from dsabeamformer.ops.reference import beamform_stokes_ref
 
     cfg = TINY.replace(weight_mode="f32")
     mesh = make_tp_mesh(2, 2)

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from dsabeamformer_tpu.ingest.generator import make_point_source_block
-from dsabeamformer_tpu.models.calibration import CalTable
-from dsabeamformer_tpu.models.tracking import EARTH_ROT_RAD_S, FringeTracker
-from dsabeamformer_tpu.pipeline import CollectSink, StreamingBeamformer, SyntheticSource
+from dsabeamformer.ingest.generator import make_point_source_block
+from dsabeamformer.models.calibration import CalTable
+from dsabeamformer.models.tracking import EARTH_ROT_RAD_S, FringeTracker
+from dsabeamformer.pipeline import CollectSink, StreamingBeamformer, SyntheticSource
 
 
 def test_update_interval_scales_with_phase_budget(tiny_cfg):
@@ -55,7 +55,7 @@ def test_tracked_stream_follows_source(tiny_cfg):
                                     noise_rms=0.0, seed=i)
         )
         # tracked weights at that time:
-        from dsabeamformer_tpu.ops.gemm import beamform_power
+        from dsabeamformer.ops.gemm import beamform_power
         import jax
 
         p_tracked = np.asarray(

@@ -3,9 +3,9 @@ calibration folding, pointing (SURVEY.md C8, §3.3)."""
 
 import numpy as np
 
-from dsabeamformer_tpu.models.arrays import array_for
-from dsabeamformer_tpu.models.calibration import CalTable
-from dsabeamformer_tpu.models.weights import make_weights, weights_numpy_golden
+from dsabeamformer.models.arrays import array_for
+from dsabeamformer.models.calibration import CalTable
+from dsabeamformer.models.weights import make_weights, weights_numpy_golden
 
 
 def test_weights_match_numpy_golden(tiny_cfg):
@@ -57,8 +57,8 @@ def test_text_position_table_roundtrip(tmp_path, tiny_cfg):
     (SURVEY.md C2/C8: the reference compiled such a table in)."""
     import numpy as np
 
-    from dsabeamformer_tpu.models.arrays import ArrayLayout, array_for
-    from dsabeamformer_tpu.models.weights import make_weights
+    from dsabeamformer.models.arrays import ArrayLayout, array_for
+    from dsabeamformer.models.weights import make_weights
 
     ref_layout = array_for(tiny_cfg)
     path = tmp_path / "positions.txt"
@@ -79,8 +79,8 @@ def test_text_position_table_roundtrip(tmp_path, tiny_cfg):
 def test_layout_active_count_mismatch_rejected(tiny_cfg):
     import pytest
 
-    from dsabeamformer_tpu.models.arrays import linear_array
-    from dsabeamformer_tpu.models.weights import make_weights
+    from dsabeamformer.models.arrays import linear_array
+    from dsabeamformer.models.weights import make_weights
 
     bad = linear_array(tiny_cfg.n_ant, tiny_cfg.n_ant_active + 2, 5.0)
     with pytest.raises(ValueError, match="active"):
@@ -90,8 +90,8 @@ def test_layout_active_count_mismatch_rejected(tiny_cfg):
 def test_cli_layout_flag(tmp_path, capsys, tiny_cfg):
     import json
 
-    from dsabeamformer_tpu import cli
-    from dsabeamformer_tpu.models.arrays import array_for
+    from dsabeamformer import cli
+    from dsabeamformer.models.arrays import array_for
 
     layout = array_for(tiny_cfg)
     path = tmp_path / "pos.txt"

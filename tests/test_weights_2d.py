@@ -4,16 +4,16 @@ beyond the reference's 1-D east-west fan)."""
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.config import SPEED_OF_LIGHT_M_S
-from dsabeamformer_tpu.ingest.generator import _emit
-from dsabeamformer_tpu.models.arrays import ArrayLayout
-from dsabeamformer_tpu.models.weights import (
+from dsabeamformer.config import SPEED_OF_LIGHT_M_S
+from dsabeamformer.ingest.generator import _emit
+from dsabeamformer.models.arrays import ArrayLayout
+from dsabeamformer.models.weights import (
     make_weights,
     make_weights_lm,
     weights_lm_numpy_golden,
 )
-from dsabeamformer_tpu.ops.gemm import beamform_power
-from dsabeamformer_tpu.ops.quantize import quantize_weights
+from dsabeamformer.ops.gemm import beamform_power
+from dsabeamformer.ops.quantize import quantize_weights
 
 
 @pytest.fixture()
@@ -100,7 +100,7 @@ def test_layout_2d_roundtrip(tmp_path, layout_2d):
 
 def test_beam_response_lm_peaks(cfg2d, layout_2d):
     """Each (l, m) beam's response peaks at its own grid direction."""
-    from dsabeamformer_tpu.models.beampattern import beam_response_lm
+    from dsabeamformer.models.beampattern import beam_response_lm
 
     n = 6
     lg = np.linspace(-0.01, 0.01, n)

@@ -9,7 +9,7 @@ import json
 import numpy as np
 import pytest
 
-from dsabeamformer_tpu.models.weights import (
+from dsabeamformer.models.weights import (
     make_weights,
     parse_zap,
     zap_mask_avg,
@@ -32,9 +32,9 @@ def test_zap_weights_exact_zero_all_modes(tiny_cfg):
     to the unzapped run (per-channel scales are independent)."""
     import jax
 
-    from dsabeamformer_tpu.ingest.generator import make_point_source_block
-    from dsabeamformer_tpu.ops import beamform_power
-    from dsabeamformer_tpu.ops.quantize import prepare_weights
+    from dsabeamformer.ingest.generator import make_point_source_block
+    from dsabeamformer.ops import beamform_power
+    from dsabeamformer.ops.quantize import prepare_weights
 
     zapped = [1, 3]
     for mode in ("int8x2", "f32", "int13"):
@@ -74,8 +74,8 @@ def test_zap_mask_avg(tiny_cfg):
 def test_cli_run_zap_and_incoherent_mask(tiny_cfg, tmp_path, capsys):
     """End-to-end: --zap zeroes the coherent output channels and masks
     the incoherent product's averaged groups."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
 
     cfg = tiny_cfg
     raw = tmp_path / "cap.raw"
@@ -100,8 +100,8 @@ def test_cli_run_zap_and_incoherent_mask(tiny_cfg, tmp_path, capsys):
 def test_cli_zap_subband_frame(tiny_cfg, tmp_path):
     """--zap indices are FULL-band: a subband child zaps only the
     intersection, translated into its local frame."""
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
 
     cfg = tiny_cfg
     width = cfg.n_chan // 2
@@ -122,8 +122,8 @@ def test_cli_zap_subband_frame(tiny_cfg, tmp_path):
 
 
 def test_cli_zap_errors(tiny_cfg, tmp_path):
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
 
     cfg = tiny_cfg
     raw = tmp_path / "cap.raw"
@@ -143,10 +143,10 @@ def test_cmd_weights_zap_persists(tiny_cfg, tmp_path, capsys):
     a run loading it gets the zeroed channels."""
     import jax
 
-    from dsabeamformer_tpu.cli import main as cli_main
-    from dsabeamformer_tpu.ingest.generator import make_noise_block
-    from dsabeamformer_tpu.ops import beamform_power
-    from dsabeamformer_tpu.ops.quantize import load_quant_weights
+    from dsabeamformer.cli import main as cli_main
+    from dsabeamformer.ingest.generator import make_noise_block
+    from dsabeamformer.ops import beamform_power
+    from dsabeamformer.ops.quantize import load_quant_weights
 
     cfg = tiny_cfg
     wpath = tmp_path / "w.npz"
